@@ -21,3 +21,9 @@ def count_primitives(jx, name):
                     n += count_primitives(getattr(inner, "jaxpr", inner),
                                           name)
     return n
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one "
+                   "(run: pytest -m gpu tests/test_torch_cuda.py)")

@@ -1,0 +1,186 @@
+"""The port's two CUDA kernels against their plain versions, and the
+fused emitter's C body against ``eval_netlist``.
+
+The ``gpu`` tests need a card and skip without one (each test decides,
+through the ``cuda`` fixture); run them on the card with
+``pytest -m gpu tests/test_torch_cuda.py``.  The emitter test compiles
+the generated body — plain ``uint32_t`` C — with the host ``g++`` and
+runs here on the CPU.
+"""
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.codegen import eval_netlist
+from repro_torch.core.fpformat import HOBFLOPS_FORMATS, RNE, RTZ, FPFormat
+from repro_torch.core.fused_backend import kernel as fused
+from repro_torch.kernels.bitslice_mac import kernel as interp
+from repro_torch.kernels.conv2d_bitslice.network import NetworkGraph
+
+F8 = HOBFLOPS_FORMATS["hobflops8"]
+F9 = HOBFLOPS_FORMATS["hobflops9"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _operands(rng, fmt, P, C, Mw):
+    i_masks = -rng.integers(0, 2, (P, C, fmt.nbits)).astype(np.int32)
+    w_planes = rng.integers(-2**31, 2**31, (C, fmt.nbits, Mw),
+                            dtype=np.int64).astype(np.int32)
+    return torch.from_numpy(i_masks), torch.from_numpy(w_planes)
+
+
+# Odd shapes (ragged P / Mw / C edges against every block) and block
+# settings, including one thread per block and a C tile that is not a
+# multiple of the chain depth.
+CASES = [
+    (F9, RNE, False, 37, 19, 3, {}),
+    (F9, RNE, False, 5, 70, 17, {"p_block": 1, "m_block": 1,
+                                 "c_block": 1, "c_unroll": 1}),
+    (F8, RTZ, False, 50, 33, 2, {"p_block": 8, "m_block": 4,
+                                 "c_block": 7, "c_unroll": 3}),
+    (F8, RNE, True, 9, 12, 5, {"p_block": 2, "m_block": 32,
+                               "c_block": 64, "c_unroll": 2}),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt,rounding,extended,P,C,Mw,blocks", CASES)
+@pytest.mark.parametrize("kernel", ["bitslice_mac", "fused_mac"])
+def test_kernel_matches_plain_version(cuda, kernel, fmt, rounding,
+                                      extended, P, C, Mw, blocks):
+    rng = np.random.default_rng(P * 1000 + C)
+    i_masks, w_planes = _operands(rng, fmt, P, C, Mw)
+    kw = dict(fmt=fmt, extended=extended, rounding=rounding, **blocks)
+    if kernel == "bitslice_mac":
+        want = interp.bitslice_mac_cuda(i_masks, w_planes, **kw)
+        got = interp.bitslice_mac_cuda(i_masks.to(cuda), w_planes.to(cuda),
+                                       **kw)
+    else:
+        kw["relu"] = True
+        want = fused.fused_mac_cuda(i_masks, w_planes, **kw)
+        got = fused.fused_mac_cuda(i_masks.to(cuda), w_planes.to(cuda),
+                                   **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_kernels_block_independent(cuda):
+    rng = np.random.default_rng(7)
+    i_masks, w_planes = _operands(rng, F9, 29, 45, 6)
+    i_masks, w_planes = i_masks.to(cuda), w_planes.to(cuda)
+    outs = []
+    for blocks in ({}, {"p_block": 1, "m_block": 6, "c_block": 45},
+                   {"p_block": 16, "m_block": 2, "c_block": 5},
+                   {"p_block": 3, "m_block": 32, "c_block": 40}):
+        for k in (1, 4):
+            kw = dict(fmt=F9, c_unroll=k, **blocks)
+            outs.append(interp.bitslice_mac_cuda(i_masks, w_planes, **kw))
+            outs.append(fused.fused_mac_cuda(i_masks, w_planes, **kw))
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["cuda", "cuda_fused"])
+def test_network_on_card_matches_cpu(cuda, backend):
+    rng = np.random.default_rng(3)
+    img = rng.standard_normal((2, 6, 6, 5)).astype(np.float32)
+
+    def graph(device):
+        g = NetworkGraph(F8, backend=backend, device=device)
+        k = np.random.default_rng(4)
+        c1 = g.conv("c1", g.input_name,
+                    (k.standard_normal((3, 3, 5, 40)) * 0.3)
+                    .astype(np.float32), relu=True)
+        p1 = g.maxpool2d("p1", c1)
+        d = g.conv("d", p1, (k.standard_normal((3, 3, 40, 8)) * 0.3)
+                   .astype(np.float32), FPFormat(5, 5), stride=2)
+        return g.output(g.avgpool2d("head", d, window=2))
+
+    got = graph(cuda).run(img).cpu()
+    want = graph("cpu").run(img)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_plain_backend_refuses_card(cuda):
+    i_masks, w_planes = _operands(np.random.default_rng(0), F8, 4, 4, 1)
+    from repro_torch.kernels.bitslice_mac.ops import mac_planes
+    with pytest.raises(ValueError):
+        mac_planes(i_masks.to(cuda), w_planes.to(cuda), fmt=F8,
+                   backend="torch")
+
+
+def test_launch_blocks_are_checked_before_launch():
+    """A block the card would refuse (too many threads, too much shared
+    memory, an empty block) raises in Python; the C tile rounds up to
+    the chain depth."""
+    from repro_torch import _build
+    assert _build.c_tile(32, 4) == 32 and _build.c_tile(7, 3) == 9
+    assert _build.c_tile(1, 4) == 4
+    _build.check_blocks(4, 16, 32, 48 * 1024)
+    for p, m, smem in ((33, 32, 0), (0, 16, 0), (4, 16, 232449)):
+        with pytest.raises(ValueError, match="blocks p="):
+            _build.check_blocks(p, m, 32, smem)
+    need = interp.smem_bytes(165, 11, 12, 4, 16, 32)
+    assert need == 4 * (20 * (32 * 11 + 1) + 177 * 64)
+    assert fused.smem_bytes(11, 4, 16, 32) == 4 * 20 * (32 * 11 + 1)
+
+
+# ---------------------------------------------------------------------------
+# The emitted fused body, compiled with the host C++ compiler
+# ---------------------------------------------------------------------------
+def test_emitted_body_matches_eval_netlist(tmp_path):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    variants = [(fmt, k) for fmt in (F8, F9) for k in (1, 4)]
+    src = ["#include <cstdint>", "#define HF_INLINE inline"]
+    for i, (fmt, k) in enumerate(variants):
+        lowered = fused.fused_chain_lowered(fmt, k, False, RNE)
+        src.append(lowered.cuda_body(f"Body{i}", SIGN_OFF=0))
+        src.append(
+            f'extern "C" void run{i}(const uint32_t* x, const uint32_t* y, '
+            f"uint32_t* acc, int n) {{ for (int i = 0; i < n; ++i) "
+            f"Body{i}::run(x + i * Body{i}::K * Body{i}::NIN, "
+            f"y + i * Body{i}::K * Body{i}::NIN, acc + i * Body{i}::NOUT);"
+            f" }}")
+    cpp, so = tmp_path / "bodies.cpp", tmp_path / "bodies.so"
+    cpp.write_text("\n".join(src) + "\n")
+    subprocess.run([gxx, "-O1", "-shared", "-fPIC", "-o", str(so),
+                    str(cpp)], check=True)
+    lib = ctypes.CDLL(str(so))
+    rng = np.random.default_rng(11)
+    n = 256
+    for i, (fmt, k) in enumerate(variants):
+        lowered = fused.fused_chain_lowered(fmt, k, False, RNE)
+        nin, nout = fmt.nbits, fmt.mult_out().nbits
+
+        def words(*shape):
+            return rng.integers(0, 2**32, shape, dtype=np.uint64) \
+                .astype(np.uint32)
+
+        xs, ys, acc = words(k, nin, n), words(k, nin, n), words(nout, n)
+        inputs = {"acc": acc}
+        for j in range(k):
+            inputs[f"x{j}"], inputs[f"y{j}"] = xs[j], ys[j]
+        want = eval_netlist(lowered.graph, inputs)["out"]
+        x = np.ascontiguousarray(xs.transpose(2, 0, 1))
+        y = np.ascontiguousarray(ys.transpose(2, 0, 1))
+        a = np.ascontiguousarray(acc.T)
+        getattr(lib, f"run{i}")(*(ctypes.c_void_p(t.ctypes.data)
+                                  for t in (x, y, a)), ctypes.c_int(n))
+        assert (a.T == want).all(), (fmt, k)
