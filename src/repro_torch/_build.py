@@ -92,8 +92,12 @@ def build(jobs: list[tuple[str, str]]) -> list[Library]:
         if so in _LOADED or so.exists():
             procs.append(None)
             continue
+        # Written whole and renamed into place, so a process building the
+        # same source at the same time never compiles a half-written file.
         cu = BUILD_DIR / f"{stem}.cu"
-        cu.write_text(source)
+        cu_tmp = BUILD_DIR / f"{stem}.{os.getpid()}.tmp.cu"
+        cu_tmp.write_text(source)
+        os.replace(cu_tmp, cu)
         tmp = BUILD_DIR / f"{stem}.{os.getpid()}.tmp.so"
         cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(cu)]
         procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
