@@ -19,12 +19,17 @@ versions:
    its per-layer f32-boundary oracle, bit-identical;
 4. compares each kernel with its plain version, bit-exact, on the 1x1
    512->512 layer and on the 3x3 layer at cin 64;
-5. times each kernel with CUDA events at the main path's shapes;
-6. prints one JSON ``kernels`` line and, last, the ``ok`` line.
+5. times each kernel with CUDA events at the main path's shapes, and
+   the stack's steady requests;
+6. traces requests of batch 1 and 4 with ``torch.profiler``: the
+   device's busy share and device time and launches by kernel group;
+7. prints one JSON ``kernels`` line and, last, the ``ok`` line.
 
 Launch counts are zeroed just before steps 2-3 and read just after.
 Any mismatch or failure exits non-zero.  Weights and images come from
-``numpy.random.default_rng(--seed)``.
+``numpy.random.default_rng(--seed)``.  ``scripts/torch_fused_regfile.py``
+imports the card query, the ``-Xptxas -v`` parser and the timer from
+here.
 
 Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -45,6 +51,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT32_LANES_PER_SM = 64        # 32-bit integer/logic results per clock per SM
+HW, WIDTH = 14, 512            # MobileNets' 14x14x512 stage
+REPS = 20                      # timed calls after the warm-up
+TRACED_REQS = 10               # requests under the profiler, per batch
 
 
 def nvidia_smi(fields: str) -> str:
@@ -53,11 +62,29 @@ def nvidia_smi(fields: str) -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def ptxas_summary(log: str) -> list[str]:
-    """The per-kernel lines of a ``-Xptxas -v`` report."""
-    keep = ("Compiling entry", "Used", "spill", "Function properties")
-    return [ln.strip() for ln in log.splitlines()
-            if any(k in ln for k in keep)]
+def ptxas_report(log: str) -> dict[str, dict]:
+    """``{mangled entry: {"regs", "smem", "spill_stores", "spill_loads"}}``
+    from a ``-Xptxas -v`` report (``smem`` is the static shared memory;
+    both kernels' tiles are dynamic)."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {"smem": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["regs"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            cur["smem"] = int(m.group(1))
+    return out
 
 
 class SmokeFailure(RuntimeError):
@@ -99,18 +126,54 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_time_us(evt) -> float:
+    """Self device time of a profiler average (``self_cuda_time_total``
+    in older torch)."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    raise AttributeError("profiler event carries no device time")
+
+
+def trace_requests(net, x, reqs: int) -> dict:
+    """``reqs`` requests under ``torch.profiler``: the host time of the
+    traced window and the device's busy time a request (every kernel and
+    copy; one stream, so they do not overlap), and device ms and
+    launches a request by group: the two MAC kernels by name, every
+    other kernel one of the stages' torch ops."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reqs):
+            net(x)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / reqs
+    groups = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((k for k in ("fused_mac", "bitslice_mac")
+                     if f"{k}_kernel" in e.key), "torch ops")
+        ms, n = groups.get(name, (0.0, 0.0))
+        groups[name] = (ms + device_time_us(e) / 1e3 / reqs,
+                        n + e.count / reqs)
+    return {"host_ms": host_ms,
+            "busy_ms": sum(ms for ms, _ in groups.values()),
+            "groups": groups}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--hw", type=int, default=14)
-    ap.add_argument("--width", type=int, default=512)
-    ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
 
+    from repro_torch import _build
     from repro_torch.core.bitslice import unpack_planes
     from repro_torch.core.fpformat import HOBFLOPS_FORMATS, RNE, FPFormat
     from repro_torch.core.softfloat import decode_torch
@@ -138,7 +201,7 @@ def main() -> int:
     fmt = HOBFLOPS_FORMATS["hobflops9"]
     hi = FPFormat(fmt.w_e, fmt.w_f + 2)
     rng = np.random.default_rng(args.seed)
-    hw, c = args.hw, args.width
+    hw, c = HW, WIDTH
 
     # -- models -------------------------------------------------------
     stack_k = [he_kernels(rng, s) for s in
@@ -172,8 +235,18 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
         print(f"ptxas [{lib.name}]:")
-        for ln in ptxas_summary(lib.ptxas_log):
-            print("   ", ln)
+        for entry, rep in ptxas_report(lib.ptxas_log).items():
+            print(f"    {entry}: {rep.get('regs')} registers, "
+                  f"{rep['smem']} B static shared, spill stores/loads "
+                  f"{rep.get('spill_stores')}/{rep.get('spill_loads')} B")
+    blk = _build.launch_blocks(hw * hw, c, c // 32)
+    p, m, k = blk["p_block"], blk["m_block"], blk["c_unroll"]
+    ct = _build.c_tile(blk["c_block"], k)
+    prog = interp.mac_program(fmt, k, False, RNE)
+    smem = (fused.smem_bytes(fmt.nbits, p, m, ct),
+            interp.smem_bytes(prog.nslots, fmt.nbits, prog.nout, p, m, ct))
+    print(f"dynamic shared memory a block at the main path's blocks {blk}:"
+          f" fused_mac {smem[0]} B, bitslice_mac {smem[1]} B")
 
     # -- 2./3. the main path, counted ----------------------------------
     requests = [rng.standard_normal((b, hw, hw, c)).astype(np.float32)
@@ -253,21 +326,22 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, start.elapsed_time(end)
 
-    k_fused = fused.fused_chain_k(fmt, False, 4)
+    # Both wrappers at their defaults, as the main path launches them.
+    k_fused = fused.fused_chain_k(fmt)
     kernels = {
         "bitslice_mac": dict(
             route="cuda", source="src/repro_torch/csrc/bitslice_mac.cu",
             replaces="src/repro/kernels/bitslice_mac/kernel.py:140",
-            k=4, launch=lambda i, w: interp.bitslice_mac_cuda(
-                i, w, fmt=fmt, c_unroll=4),
+            k=_build.CHAIN_DEPTH, launch=lambda i, w:
+                interp.bitslice_mac_cuda(i, w, fmt=fmt),
             plain=lambda i, w: interp._bitslice_mac_torch(
-                i, w, fmt=fmt, extended=False, rounding=RNE, c_unroll=4)),
+                i, w, fmt=fmt, extended=False, rounding=RNE)),
         "fused_mac": dict(
             route="cuda",
             source="src/repro_torch/csrc/fused_mac.cuh",
             replaces="src/repro/core/pallas_backend/kernel.py:98",
             k=k_fused, launch=lambda i, w: fused.fused_mac_cuda(
-                i, w, fmt=fmt, c_unroll=4, relu=True),
+                i, w, fmt=fmt, relu=True),
             plain=lambda i, w: fused._fused_mac_torch(
                 i, w, fmt=fmt, extended=False, rounding=RNE, k=k_fused,
                 relu=True)),
@@ -313,7 +387,7 @@ def main() -> int:
         for shape, (i_m, w_p) in conv_ops.items():
             P, C, _ = i_m.shape
             Mw = w_p.shape[2]
-            ms = time_cuda(lambda: kd["launch"](i_m, w_p), args.reps)
+            ms = time_cuda(lambda: kd["launch"](i_m, w_p), REPS)
             ops = gates * P * Mw * C / 4
             nbytes = 4 * (i_m.numel() + w_p.numel()
                           + fmt.mult_out().nbits * P * Mw)
@@ -337,13 +411,32 @@ def main() -> int:
         })
 
     # Steady-state request times (warm), cuda_fused.
+    steady = {}
     for img in requests:
         x = torch.as_tensor(img, device=dev)
-        ms = time_cuda(lambda: nets["cuda_fused"](x), args.reps)
-        print(f"stack batch {img.shape[0]} cuda_fused steady: {ms:.1f} ms "
+        ms = steady[img.shape[0]] = time_cuda(lambda: nets["cuda_fused"](x),
+                                              REPS)
+        print(f"stack batch {img.shape[0]} cuda_fused steady: {ms:.3f} ms "
               f"({nets['cuda_fused'].macs(img.shape) / ms / 1e6:.2f} "
               f"GMAC/s)")
     print(f"(ops counted at {gates} avx512 cells per 4 channels)")
+
+    # Where a steady request's time goes, traced.
+    for img in (requests[0], requests[2]):
+        x = torch.as_tensor(img, device=dev)
+        tr = trace_requests(nets["cuda_fused"], x, TRACED_REQS)
+        if tr["busy_ms"] == 0.0:
+            print(f"traced batch {img.shape[0]}: the trace holds no device "
+                  f"time; busy share not measured")
+            continue
+        b = img.shape[0]
+        print(f"traced batch {b}: host {tr['host_ms']:.3f} ms a request "
+              f"(traced window), device busy {tr['busy_ms']:.3f} ms = "
+              f"{100 * tr['busy_ms'] / steady[b]:.1f}% of the untraced "
+              f"steady request")
+        for g, (ms, n) in sorted(tr["groups"].items(),
+                                 key=lambda kv: -kv[1][0]):
+            print(f"    {g:12s} {ms:8.3f} ms device, {n:6.1f} launches")
     print(f"clocks.sm, power.draw, temperature.gpu after timing: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
 

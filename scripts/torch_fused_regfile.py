@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Register-file report of the port's fused MAC kernel, on one card.
+"""Register file and time of the port's fused MAC kernel per chain depth,
+on one card.
 
 Builds the fused kernel (``src/repro_torch/csrc/fused_mac.cuh`` with the
 emitted chain bodies) for several formats at chain depths 1-4, one
 ``nvcc`` per format started together, and prints for each variant the
 schedule's peak live slots, the gate count, and what ``-Xptxas -v``
 reports: registers per thread and spill bytes.  Then it times every
-variant with CUDA events on the 1x1 512->512 layer of the MobileNets
-14x14x512 stage at batch 1 (P=196, C=512, Mw=16), in rounds over the
-depths (median and range of ``--rounds``), and checks that every
-depth of a format gives the same planes.  ``fused_chain_k``'s gate
-budget is chosen from this table.
+variant with CUDA events on both conv layers of the MobileNets 14x14x512
+stage at batch 1 — the 3x3 512->512 layer (P=196, C=4608, Mw=16) and the
+1x1 512->512 layer (C=512) — in rounds over the depths (median and range
+of the rounds), and weighs them as a request of the stack does: one 3x3
+and two 1x1 launches.  It checks that every depth of a format gives the
+same planes.  ``fused_chain_k``'s depth policy is chosen from this
+table.
 
 Run from the repository root on a machine with a card:
 ``python3 scripts/torch_fused_regfile.py``.
@@ -20,46 +23,26 @@ from __future__ import annotations
 import argparse
 import functools
 import json
-import re
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from chip_smoke import nvidia_smi, ptxas_report, time_cuda  # noqa: E402
 
 FORMATS = {"hobflops8": (5, 2), "hobflops9": (5, 3), "hobflops11": (5, 5),
            "hobflops16": (5, 10)}
-
-
-def ptxas_by_kernel(log: str) -> dict[str, dict]:
-    """``{mangled entry: {"regs", "spill_stores", "spill_loads"}}`` from a
-    ``-Xptxas -v`` report."""
-    out, cur = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", ln)
-        if m:
-            cur = out.setdefault(m.group(1), {})
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      ln)
-        if m:
-            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            cur["regs"] = int(m.group(1))
-    return out
+# (name, C, launches of the layer in one request of the stack)
+LAYERS = (("3x3", 4608, 1), ("1x1", 512, 2))
+P, MW = 196, 16
+REPS, ROUNDS = 20, 5
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -71,83 +54,76 @@ def main() -> int:
     from repro_torch.core.fpformat import RNE, FPFormat
     from repro_torch.core.fused_backend import kernel as fused
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip()
+    card = nvidia_smi("name,power.limit")
     print(card)
-    # Every depth is built and launched as asked: lift the budget that
-    # fused_chain_k would otherwise apply.
-    fused.GATE_BUDGET = 1 << 30
+    # Every depth is built and launched as asked: the wrapper's depth
+    # policy is set aside for the sweep.
+    policy = fused.fused_chain_k
+    fused.fused_chain_k = lambda fmt, extended, requested, rounding: \
+        requested
     variants = {name: [(FPFormat(*we_wf), k, False, RNE, False)
                        for k in (1, 2, 3, 4)]
                 for name, we_wf in FORMATS.items()}
-    jobs = [fused.build_job(vs) for vs in variants.values()]
-    libs = _build.build(jobs)
+    libs = _build.build([fused.build_job(vs) for vs in variants.values()])
+    regs = {}
     for lib, vs in zip(libs, variants.values()):
         fused.load(lib, vs)
-    regs = {}
-    for lib in libs:
-        regs.update(ptxas_by_kernel(lib.ptxas_log))
+        regs.update(ptxas_report(lib.ptxas_log))
 
     rng = np.random.default_rng(args.seed)
-    P, C, Mw = 196, 512, 16
     rows = []
     for name, vs in variants.items():
         fmt = vs[0][0]
-        i_masks = torch.as_tensor(
-            -rng.integers(0, 2, (P, C, fmt.nbits)).astype(np.int32),
-            device="cuda")
-        w_planes = torch.as_tensor(
-            rng.integers(-2**31, 2**31, (C, fmt.nbits, Mw), dtype=np.int64)
-            .astype(np.int32), device="cuda")
-        launches = {v[1]: functools.partial(
-            fused.fused_mac_cuda, i_masks, w_planes, fmt=fmt, c_unroll=v[1])
-            for v in vs}
-        outs = {k: fn() for k, fn in launches.items()}
-        # Rounds over every depth in turn, so drift hits all depths alike.
-        # ``host`` is the host's time to enqueue one launch: a device
-        # time no larger than it means the launches were host-bound.
-        times = {k: [] for k in launches}
-        host = {k: [] for k in launches}
-        for _ in range(args.rounds):
-            for k, fn in launches.items():
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                start.record()
-                for _ in range(args.reps):
-                    fn()
-                end.record()
-                host[k].append((time.perf_counter() - t0) * 1e3 / args.reps)
-                torch.cuda.synchronize()
-                times[k].append(start.elapsed_time(end) / args.reps)
-        for k in launches:
+        ms = {}                              # (layer, k) -> per-round ms
+        for layer, C, _ in LAYERS:
+            i_masks = torch.as_tensor(
+                -rng.integers(0, 2, (P, C, fmt.nbits)).astype(np.int32),
+                device="cuda")
+            w_planes = torch.as_tensor(
+                rng.integers(-2**31, 2**31, (C, fmt.nbits, MW),
+                             dtype=np.int64).astype(np.int32),
+                device="cuda")
+            launches = {v[1]: functools.partial(
+                fused.fused_mac_cuda, i_masks, w_planes, fmt=fmt,
+                c_unroll=v[1]) for v in vs}
+            outs = {k: fn() for k, fn in launches.items()}
+            if not all(torch.equal(o, outs[1]) for o in outs.values()):
+                print(f"{name} {layer}: chain depth changed the planes",
+                      file=sys.stderr)
+                return 1
+            # Rounds over every depth in turn, so drift hits all alike.
+            for _ in range(ROUNDS):
+                for k, fn in launches.items():
+                    ms.setdefault((layer, k), []).append(
+                        time_cuda(fn, REPS))
+        for _, k, *_ in vs:
             lowered = fused.fused_chain_lowered(fmt, k, False, RNE)
             tag = "Body_" + fused.variant_tag(fmt, k, False, RNE, False)
             rep = next(r for ent, r in regs.items() if tag in ent)
-            same = bool(torch.equal(outs[k], outs[1]))
-            ms = sorted(times[k])
             row = {"format": name, "k": k, "live_slots": lowered.nslots,
-                   "gates": lowered.gate_count(), **rep,
-                   "ms_median": ms[len(ms) // 2], "ms_min": ms[0],
-                   "ms_max": ms[-1],
-                   "host_ms_median": sorted(host[k])[len(ms) // 2],
-                   "same_planes_as_k1": same}
+                   "gates": lowered.gate_count(), **rep}
+            for layer, _, _ in LAYERS:
+                t = sorted(ms[(layer, k)])
+                row[layer] = {"median": t[len(t) // 2], "min": t[0],
+                              "max": t[-1]}
+            row["request_ms"] = sum(n * row[layer]["median"]
+                                    for layer, _, n in LAYERS)
             rows.append(row)
             print(f"{name:11s} k={k} live slots {lowered.nslots:4d} gates "
                   f"{lowered.gate_count():5d} regs {rep.get('regs')} "
                   f"spill st/ld {rep.get('spill_stores')}/"
-                  f"{rep.get('spill_loads')} B  median {row['ms_median']:.4f}"
-                  f" ms [{ms[0]:.4f}, {ms[-1]:.4f}] over {len(ms)} rounds,"
-                  f" host {row['host_ms_median']:.4f} ms/launch"
-                  f"  planes {'==' if same else '!='} k=1")
-            if not same:
-                print("chain depth changed the planes", file=sys.stderr)
-                return 1
+                  f"{rep.get('spill_loads')} B  " + "  ".join(
+                      f"{layer} {row[layer]['median']:.4f} "
+                      f"[{row[layer]['min']:.4f}, {row[layer]['max']:.4f}]"
+                      for layer, _, _ in LAYERS)
+                  + f"  3x3 + 2 x 1x1 {row['request_ms']:.4f} ms")
+        best = min((r for r in rows if r["format"] == name),
+                   key=lambda r: r["request_ms"])
+        print(f"{name:11s} fastest request at k={best['k']}; "
+              f"fused_chain_k picks k={policy(fmt)}")
     print(card)
-    print(json.dumps({"card": card, "shape": {"P": P, "C": C, "Mw": Mw},
+    print(json.dumps({"card": card, "shape": {"P": P, "Mw": MW},
+                      "layers": LAYERS, "rounds": ROUNDS, "reps": REPS,
                       "rows": rows}))
     return 0
 

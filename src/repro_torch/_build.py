@@ -30,11 +30,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-# Hopper launch defaults of both kernels: threads per block along rows
-# (p_block) and lane words (m_block), the C tile staged in shared memory
-# (c_block) and the requested chain depth.  Values never depend on them.
-DEFAULT_BLOCKS = {"p_block": 4, "m_block": 16, "c_block": 32,
-                  "c_unroll": 4}
+# Hopper launch defaults of both kernels (see launch_blocks).  Values
+# never depend on them.
+THREADS = 64               # threads a block, over (lane word, row)
+M_BLOCK = 32               # lane words a block at most: one warp per row
+C_BLOCK = 32               # channels of the C tile in shared memory
+CHAIN_DEPTH = 4            # MAC steps a chain body is asked to take
 MAX_THREADS = 1024         # threads one block may hold
 MAX_SMEM = 232448          # bytes of shared memory one block may use
 
@@ -144,6 +145,32 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def check(code: int, what: str) -> None:
     if code != 0:
         raise KernelLaunchError(f"{what}: CUDA error {code}")
+
+
+def chain_depth(C: int, c_unroll: int | None = None) -> int:
+    """The chain depth asked of a kernel for ``C`` channels:
+    ``c_unroll`` (default :data:`CHAIN_DEPTH`) clamped to ``[1, C]``."""
+    return max(1, min(c_unroll or CHAIN_DEPTH, C))
+
+
+def launch_blocks(P: int, C: int, Mw: int, *, p_block: int | None = None,
+                  m_block: int | None = None, c_block: int | None = None,
+                  c_unroll: int | None = None) -> dict:
+    """Launch parameters of either MAC kernel for ``P`` rows, ``C``
+    channels and ``Mw`` lane words — the one place their defaults live.
+
+    A block is ``m_block x p_block`` threads over (lane word, row): up
+    to :data:`M_BLOCK` lane words and :data:`THREADS` threads in all, so
+    a batch-1 layer still spreads over many SMs.  ``c_block`` channels
+    are staged in shared memory a tile.  Given values are kept; missing
+    ones take these defaults clamped to the problem.  ``c_unroll`` is
+    always clamped (:func:`chain_depth`).
+    """
+    m = m_block or min(M_BLOCK, Mw)
+    return {"p_block": p_block or min(max(1, THREADS // m), P),
+            "m_block": m,
+            "c_block": c_block or min(C_BLOCK, C),
+            "c_unroll": chain_depth(C, c_unroll)}
 
 
 def c_tile(c_block: int, k: int) -> int:

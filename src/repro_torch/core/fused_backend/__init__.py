@@ -9,9 +9,11 @@ after the channel loop.  Selected as ``backend="cuda_fused"`` in
 backend and the softfloat oracle.
 """
 from .emitter import LoweredNetlist, RegisterFileOverflow, lower_netlist
-from .kernel import fused_chain_k, fused_chain_lowered, fused_mac_cuda
+from .kernel import (fused_chain_k, fused_chain_lowered, fused_mac_cuda,
+                     fused_variant)
 
 __all__ = [
     "LoweredNetlist", "RegisterFileOverflow", "lower_netlist",
     "fused_chain_lowered", "fused_mac_cuda", "fused_chain_k",
+    "fused_variant",
 ]

@@ -26,12 +26,15 @@ from repro_torch.core.opt import optimize_mapped
 
 from .emitter import LoweredNetlist, lower_netlist
 
-# Gates a chain body may hold before fused_chain_k stops deepening the
-# chain.  On the H100 no depth up to hobflops16 k=4 spills (at most 168
-# registers a thread), but past a few hundred gates a deeper chain saves
-# little or loses time (hobflops16: k=1 20% faster than k=4); see
+# The fused body's chain depth: FUSED_DEPTH steps where that body holds
+# at most GATE_BUDGET gates, else one.  On the H100 no depth up to
+# hobflops16 k=4 spills (at most 168 registers a thread); timed over
+# both conv layers of the MobileNets stage, k=2 is the fastest depth or
+# within 0.6% of it for hobflops8, 9 and 11, odd k=3 is slower at every
+# format, and hobflops16 (1863 gates at k=2) is fastest at k=1; see
 # scripts/torch_fused_regfile.py and PERF.md.
-GATE_BUDGET = 800
+FUSED_DEPTH = 2
+GATE_BUDGET = 1000
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,16 +49,28 @@ def fused_chain_lowered(fmt: FPFormat, k: int, extended: bool,
     return lower_netlist(mapped)
 
 
-def fused_chain_k(fmt: FPFormat, extended: bool = False, requested: int = 4,
+def fused_chain_k(fmt: FPFormat, extended: bool = False,
+                  requested: int = _build.CHAIN_DEPTH,
                   rounding: str = RNE) -> int:
-    """Chain depth the fused backend actually uses: the deepest chain up
-    to ``requested`` whose body has at most ``GATE_BUDGET`` gates (depth
-    1 always qualifies).  Chain depth never changes values."""
-    k = 1
-    while k < requested and fused_chain_lowered(
-            fmt, k + 1, extended, rounding).gate_count() <= GATE_BUDGET:
-        k += 1
+    """Chain depth the fused backend actually uses: ``requested`` capped
+    at ``FUSED_DEPTH``, and 1 where that body has more than
+    ``GATE_BUDGET`` gates.  Chain depth never changes values."""
+    k = min(requested, FUSED_DEPTH)
+    if k > 1 and fused_chain_lowered(
+            fmt, k, extended, rounding).gate_count() > GATE_BUDGET:
+        k = 1
     return k
+
+
+def fused_variant(fmt: FPFormat, C: int, extended: bool = False,
+                  rounding: str = RNE, relu: bool = False,
+                  c_unroll: int | None = None) -> tuple:
+    """The ``(fmt, k, extended, rounding, relu)`` variant that
+    :func:`fused_mac_cuda` launches for ``C`` channels — what to build
+    ahead of a run (``NetworkGraph.fused_variants``)."""
+    k = fused_chain_k(fmt, extended, _build.chain_depth(C, c_unroll),
+                      rounding)
+    return (fmt, k, extended, rounding, relu)
 
 
 def variant_tag(fmt: FPFormat, k: int, extended: bool, rounding: str,
@@ -149,31 +164,34 @@ def _fused_mac_torch(i_masks, w_planes, *, fmt: FPFormat, extended: bool,
 
 def fused_mac_cuda(i_masks: torch.Tensor, w_planes: torch.Tensor, *,
                    fmt: FPFormat, extended: bool = False,
-                   rounding: str = RNE, c_unroll: int = 4,
-                   relu: bool = False,
-                   p_block: int = _build.DEFAULT_BLOCKS["p_block"],
-                   m_block: int = _build.DEFAULT_BLOCKS["m_block"],
-                   c_block: int = _build.DEFAULT_BLOCKS["c_block"]):
+                   rounding: str = RNE, c_unroll: int | None = None,
+                   relu: bool = False, p_block: int | None = None,
+                   m_block: int | None = None, c_block: int | None = None):
     """Fused HOBFLOPS GEMM in bit planes with the optional ReLU
     epilogue: i_masks [P, C, NIN] in {0, -1}, w_planes [C, NIN, Mw] ->
-    [NOUT, P, Mw] int32, one launch.  ``c_unroll`` is clamped through
-    :func:`fused_chain_k`.  CPU tensors run the plain version; any shape
-    is accepted and the output never depends on the blocks."""
+    [NOUT, P, Mw] int32, one launch of :func:`fused_variant`'s variant
+    with blocks from :func:`_build.launch_blocks`.  CPU tensors run the
+    plain version; any shape is accepted and the output never depends
+    on the blocks."""
     P, C, nin = i_masks.shape
     C2, nin2, Mw = w_planes.shape
     if (C, nin) != (C2, nin2) or nin != fmt.nbits:
         raise ValueError(f"bad operand shapes {tuple(i_masks.shape)} x "
                          f"{tuple(w_planes.shape)} for {fmt}")
-    k = fused_chain_k(fmt, extended, max(1, min(c_unroll, C)), rounding)
+    variant = fused_variant(fmt, C, extended, rounding, relu, c_unroll)
+    k = variant[1]
     if i_masks.device.type == "cpu" and w_planes.device.type == "cpu":
         return _fused_mac_torch(i_masks, w_planes, fmt=fmt,
                                 extended=extended, rounding=rounding, k=k,
                                 relu=relu)
     _build.require_cuda(i_masks, w_planes)
-    ct = _build.c_tile(c_block, k)
+    blk = _build.launch_blocks(P, C, Mw, p_block=p_block, m_block=m_block,
+                               c_block=c_block)
+    p_block, m_block = blk["p_block"], blk["m_block"]
+    ct = _build.c_tile(blk["c_block"], k)
     smem = smem_bytes(nin, p_block, m_block, ct)
     _build.check_blocks(p_block, m_block, ct, smem)
-    fn = _launch_fn((fmt, k, extended, rounding, relu))
+    fn = _launch_fn(variant)
     out = torch.empty((fmt.mult_out(extended).nbits, P, Mw),
                       dtype=torch.int32, device=i_masks.device)
     with torch.cuda.device(i_masks.device):

@@ -23,7 +23,8 @@
 // tile of weights and IFM masks in shared memory once per block (rows
 // padded to an odd pitch so a warp's reads are conflict-free), and
 // leaves the chain depth k to fused_chain_k.  No depth up to hobflops16
-// k=4 spills on sm_90a; the cap is on body size (see PERF.md).
+// k=4 spills on sm_90a; the depth is chosen from measured time over
+// depth and body size (see PERF.md).
 
 #pragma once
 #include <cstdint>

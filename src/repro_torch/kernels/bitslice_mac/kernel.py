@@ -40,8 +40,6 @@ from repro_torch.core.fpcore import (build_add, build_cast, build_mac_chain,
 from repro_torch.core.fpformat import RNE, FPFormat
 from repro_torch.core.opt import optimize_mapped
 
-DEFAULT_BLOCKS = _build.DEFAULT_BLOCKS
-
 
 def _optimized_fn(graph, lib: str):
     """Map a freshly built netlist into ``lib`` cells, run the
@@ -196,14 +194,14 @@ def run_program(prog: MacProgram, xs, ys, acc):
 
 
 def _bitslice_mac_torch(i_masks, w_planes, *, fmt: FPFormat, extended: bool,
-                        rounding: str, c_unroll: int = 4):
+                        rounding: str, c_unroll: int | None = None):
     """Plain version: the chain program stepped over C/c_unroll channel
     groups with one torch op per gate.  C is padded to a multiple of
     ``c_unroll`` with +0 codes — the all-zero planes — which are the
     MAC identity."""
     P, C, nin = i_masks.shape
     Mw = w_planes.shape[2]
-    k = max(1, min(c_unroll, C))
+    k = _build.chain_depth(C, c_unroll)
     pad = (-C) % k
     if pad:
         i_masks = F.pad(i_masks, (0, 0, 0, pad))
@@ -265,19 +263,19 @@ def smem_bytes(nslots: int, nin: int, nout: int, p_block: int,
 
 def bitslice_mac_cuda(i_masks: torch.Tensor, w_planes: torch.Tensor, *,
                       fmt: FPFormat, extended: bool = False,
-                      rounding: str = RNE, c_unroll: int = 4,
-                      p_block: int = DEFAULT_BLOCKS["p_block"],
-                      m_block: int = DEFAULT_BLOCKS["m_block"],
-                      c_block: int = DEFAULT_BLOCKS["c_block"]):
+                      rounding: str = RNE, c_unroll: int | None = None,
+                      p_block: int | None = None,
+                      m_block: int | None = None,
+                      c_block: int | None = None):
     """HOBFLOPS GEMM in bit planes: i_masks [P, C, NIN] in {0, -1},
     w_planes [C, NIN, Mw] -> [NOUT, P, Mw] int32.
 
     On CUDA tensors this launches ``csrc/bitslice_mac.cu`` (blocks of
     ``m_block x p_block`` threads, C tiles of ``c_block`` channels
-    rounded up to a multiple of the chain depth); on CPU tensors it runs
-    the plain version.  Any shape is accepted — the kernel masks the
-    ragged P, Mw and C edges — and the output never depends on the
-    blocks.
+    rounded up to a multiple of the chain depth; missing values from
+    :func:`_build.launch_blocks`); on CPU tensors it runs the plain
+    version.  Any shape is accepted — the kernel masks the ragged P, Mw
+    and C edges — and the output never depends on the blocks.
     """
     P, C, nin = i_masks.shape
     C2, nin2, Mw = w_planes.shape
@@ -289,10 +287,12 @@ def bitslice_mac_cuda(i_masks: torch.Tensor, w_planes: torch.Tensor, *,
                                    extended=extended, rounding=rounding,
                                    c_unroll=c_unroll)
     _build.require_cuda(i_masks, w_planes)
-    k = max(1, min(c_unroll, C))
+    blk = _build.launch_blocks(P, C, Mw, p_block=p_block, m_block=m_block,
+                               c_block=c_block, c_unroll=c_unroll)
+    k, p_block, m_block = blk["c_unroll"], blk["p_block"], blk["m_block"]
     prog, instr, out_desc = _device_program(fmt, k, extended, rounding,
                                             str(i_masks.device))
-    ct = _build.c_tile(c_block, k)
+    ct = _build.c_tile(blk["c_block"], k)
     smem = smem_bytes(prog.nslots, nin, prog.nout, p_block, m_block, ct)
     _build.check_blocks(p_block, m_block, ct, smem)
     fn = _launch_fn()

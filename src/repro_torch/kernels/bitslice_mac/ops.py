@@ -24,7 +24,7 @@ from repro_torch.core.bitslice import pack_planes, unpack_planes
 from repro_torch.core.fpformat import RNE, FPFormat
 from repro_torch.core.fused_backend import fused_mac_cuda
 
-from .kernel import DEFAULT_BLOCKS, _bitslice_mac_torch, bitslice_mac_cuda
+from .kernel import _bitslice_mac_torch, bitslice_mac_cuda
 
 LANE = 32
 BACKENDS = ("torch", "cuda", "cuda_fused")
@@ -75,7 +75,7 @@ def mac_planes(i_masks: torch.Tensor, w_planes: torch.Tensor, *,
     epilogue fused for ``cuda_fused``, applied after the kernel
     otherwise).  ``backend="torch"`` on a CUDA tensor raises: the plain
     version is never the main path on the card."""
-    blk = {**DEFAULT_BLOCKS, **(blocks or {})}
+    blk = blocks or {}
     if backend == "cuda_fused":
         return fused_mac_cuda(i_masks, w_planes, fmt=fmt, extended=extended,
                               rounding=rounding, relu=relu, **blk)
@@ -89,7 +89,7 @@ def mac_planes(i_masks: torch.Tensor, w_planes: torch.Tensor, *,
                              "card")
         out = _bitslice_mac_torch(i_masks, w_planes, fmt=fmt,
                                   extended=extended, rounding=rounding,
-                                  c_unroll=blk["c_unroll"])
+                                  c_unroll=blk.get("c_unroll"))
     else:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if relu:

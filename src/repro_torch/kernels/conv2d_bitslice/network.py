@@ -52,7 +52,7 @@ import torch
 
 from repro_torch.core import softfloat as sf
 from repro_torch.core.fpformat import RNE, FPFormat
-from repro_torch.core.fused_backend import fused_chain_k
+from repro_torch.core.fused_backend import fused_variant
 from repro_torch.kernels.conv2d_bitslice.ops import (ConvWeights, _conv_pad,
                                                      _fold_pairwise,
                                                      add_activations,
@@ -631,11 +631,9 @@ class NetworkGraph:
         for nd in self._live_nodes:
             if nd.kind == "conv":
                 w = self._weights[nd.name]
-                req = dict(nd.blocks).get("c_unroll") or 4
-                req = max(1, min(req, w.kh * w.kw * w.cin))
-                out.add((nd.precision, fused_chain_k(
-                    nd.precision, nd.extended, req, nd.rounding),
-                    nd.extended, nd.rounding, nd.relu))
+                out.add(fused_variant(
+                    nd.precision, w.kh * w.kw * w.cin, nd.extended,
+                    nd.rounding, nd.relu, dict(nd.blocks).get("c_unroll")))
         return out
 
     def macs(self, in_shape) -> int:

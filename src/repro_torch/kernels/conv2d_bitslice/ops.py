@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import _build
 from repro_torch.core import softfloat as sf
 from repro_torch.core.bitslice import (BitsliceActivation, pack_planes,
                                        unpack_planes, window_gather_planes)
@@ -313,25 +314,12 @@ def avgpool2d_activations(act: BitsliceActivation, window=2,
 def derive_blocks(P: int, K: int, M: int, *, p_block: int | None = None,
                   m_block: int | None = None, c_block: int | None = None,
                   c_unroll: int | None = None) -> dict:
-    """Launch parameters for a [P, K] @ [K, M] bitslice GEMM on Hopper.
-
-    ``m_block`` x ``p_block`` is the thread block over (lane word, row):
-    up to 32 lane words (one warp across a row's output channels) and
-    64 threads in all, so a batch-1 layer still spreads over many SMs.
-    ``c_block`` is the C tile staged in shared memory (32 channels) and
-    ``c_unroll`` the chain depth (4).  Every value is clamped to the
-    problem size; explicit arguments win.  Outputs never depend on
-    these.
-    """
-    m_words = -(-M // LANE)
-    m = min(m_block or 32, m_words)
-    blocks = {
-        "p_block": min(p_block or max(1, 64 // m), P),
-        "m_block": m,
-        "c_block": min(c_block or 32, K),
-        "c_unroll": max(1, min(c_unroll or 4, K)),
-    }
-    return blocks
+    """Launch parameters for a [P, K] @ [K, M] bitslice GEMM on Hopper:
+    :func:`repro_torch._build.launch_blocks` over the ``ceil(M / 32)``
+    lane words.  Outputs never depend on these."""
+    return _build.launch_blocks(P, K, -(-M // LANE), p_block=p_block,
+                                m_block=m_block, c_block=c_block,
+                                c_unroll=c_unroll)
 
 
 def conv_core(act: BitsliceActivation, weights: ConvWeights, *,

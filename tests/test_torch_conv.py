@@ -202,6 +202,26 @@ def test_derive_blocks_hopper_defaults():
     assert tconv.derive_blocks(9, 8, 2048, c_unroll=1)["c_unroll"] == 1
 
 
+def test_launch_blocks_keep_given_values():
+    """Both kernel wrappers and ``derive_blocks`` take their launch
+    parameters from one function: given values are kept (the kernels
+    mask any edge), missing ones are the defaults clamped to the problem,
+    and the chain depth is always clamped to [1, C]."""
+    from repro_torch import _build
+    from repro_torch.core.fused_backend import fused_chain_k, fused_variant
+    assert _build.launch_blocks(9, 8, 6, p_block=3, m_block=32,
+                                c_block=40) == {
+        "p_block": 3, "m_block": 32, "c_block": 40, "c_unroll": 4}
+    assert _build.launch_blocks(9, 8, 6, m_block=2)["p_block"] == 9
+    assert _build.launch_blocks(9, 3, 6, c_unroll=8)["c_unroll"] == 3
+    assert tconv.derive_blocks(196, 512, 512) == \
+        _build.launch_blocks(196, 512, 16)
+    tf, _ = _fmts(5, 3)
+    assert fused_variant(tf, 4608, relu=True) == \
+        (tf, fused_chain_k(tf, False, _build.CHAIN_DEPTH), False, RNE, True)
+    assert fused_variant(tf, 1, c_unroll=4)[1] == 1
+
+
 def test_default_device_refuses_without_card(monkeypatch):
     """Entry points default to the card and never fall back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -138,15 +138,16 @@ def test_register_file_overflow_is_raised_at_lowering():
 
 
 def test_fused_chain_k_policy():
-    """The deepest chain whose body fits the gate budget, never past the
-    request, and depth 1 whatever its size."""
-    assert fused_chain_k(F8, False, 4) == 2       # 631 gates; k=3 941
-    assert fused_chain_k(F9, False, 4) == 2       # 722 gates; k=3 1075
+    """The request capped at the fused depth, never past the request,
+    and depth 1 where that body outgrows the gate budget."""
+    assert fused_chain_k(F8, False, 4) == fused.FUSED_DEPTH == 2
+    assert fused_chain_k(F9, False, 4) == 2       # 722 gates at k=2
     assert fused_chain_k(F9, False, 1) == 1
     assert fused_chain_k(F8, False, 2) == 2
-    k = fused_chain_k(F9, False, 4)
-    assert fused_chain_lowered(F9, k, False, RNE).gate_count() <= \
-        fused.GATE_BUDGET < fused_chain_lowered(F9, k + 1, False,
-                                                RNE).gate_count()
-    wide = FPFormat(5, 10)        # hobflops16: 936 gates at k=1
+    assert fused_chain_k(FPFormat(5, 5), False, 4) == 2   # 986 gates
+    assert fused_chain_lowered(FPFormat(5, 5), 2, False, RNE) \
+        .gate_count() <= fused.GATE_BUDGET
+    wide = FPFormat(5, 10)        # hobflops16: 1863 gates at k=2
+    assert fused_chain_lowered(wide, 2, False, RNE).gate_count() > \
+        fused.GATE_BUDGET
     assert fused_chain_k(wide, False, 4) == 1
