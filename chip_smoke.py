@@ -2,13 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
 Drives the HOBFLOPS CNN inference path at the paper's MobileNets
-14x14x512 width in hobflops9, through the entry points a user calls,
-and holds both hand-written CUDA kernels against their plain torch
+14x14x512 width in hobflops9, and quantized-weight LM serving at
+qwen2-0.5b's full width, through the entry points a user calls, and
+holds all three hand-written CUDA kernels against their plain torch
 versions:
 
-1. prints the card's name and power limit, builds both kernels with
-   ``nvcc`` (one process per source, started together) and prints each
-   kernel's registers, shared memory and spills from ``-Xptxas -v``;
+1. prints the card's name and power limit, builds the three kernels
+   with ``nvcc`` (one process per source, started together) and prints
+   each kernel's registers, shared memory and spills from
+   ``-Xptxas -v``;
 2. answers three requests (batch 1, 2, 4) through the linear stack
    (3x3 512->512 conv, two 1x1 512->512 convs, ReLU after each) with the
    default ``cuda_fused`` backend and again with ``cuda``: the two must
@@ -23,13 +25,28 @@ versions:
    the stack's steady requests;
 6. traces requests of batch 1 and 4 with ``torch.profiler``: the
    device's busy share and device time and launches by kernel group;
-7. prints one JSON ``kernels`` line and, last, the ``ok`` line.
+7. serves qwen2-0.5b (24 layers, d_model 896, vocab 151936; random
+   weights from ``torch.Generator().manual_seed(--seed)``) through
+   ``serve_demo`` at batch 4, 128 prompt tokens, 16 generated, once with
+   float32 weights and once with hobflops9 bitplane weights: quantize
+   time, footprint, prefill and decode times, tokens/s, greedy
+   agreement; logits must be finite and layer 0's ``w_up`` dequantized
+   on the card must equal a numpy decode of its codes bit for bit; one
+   prefill and three decode steps of each are traced with
+   ``torch.profiler`` (host time, device busy time, kernel launches);
+8. runs the dequant matmul through its entry point at each quantized
+   projection shape of that model, at M = 512 (a prefill's rows) and
+   M = 4 (a decode step's), on layer 0's weights packed in hobflops9:
+   held against its plain version within the float32 summation bound,
+   and timed (median of 20 launches after 3 warm-ups) beside its bound,
+   the plain version and ``torch.matmul`` on the decoded weight;
+9. prints one JSON ``kernels`` line and, last, the ``ok`` line.
 
-Launch counts are zeroed just before steps 2-3 and read just after.
-Any mismatch or failure exits non-zero.  Weights and images come from
-``numpy.random.default_rng(--seed)``.  ``scripts/torch_fused_regfile.py``
-imports the card query, the ``-Xptxas -v`` parser and the timer from
-here.
+Launch counts are zeroed just before steps 2-3, 7 and 8 and read just
+after each.  Any mismatch or failure exits non-zero.  Conv weights and
+images come from ``numpy.random.default_rng(--seed)``.
+``scripts/torch_fused_regfile.py`` imports the card query, the
+``-Xptxas -v`` parser and the timer from here.
 
 Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -38,6 +55,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -51,9 +69,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT32_LANES_PER_SM = 64        # 32-bit integer/logic results per clock per SM
+FP32_LANES_PER_SM = 128        # float32 FMA lanes per SM (2 flops each)
 HW, WIDTH = 14, 512            # MobileNets' 14x14x512 stage
 REPS = 20                      # timed calls after the warm-up
 TRACED_REQS = 10               # requests under the profiler, per batch
+LM_ARCH = "qwen2-0.5b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 128, 16
+DQ_MS = (LM_BATCH * LM_PROMPT, LM_BATCH)   # prefill rows, decode-step rows
 
 
 def nvidia_smi(fields: str) -> str:
@@ -124,6 +146,26 @@ def time_cuda(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def median_device_ms(fn, reps: int = REPS, warm: int = 3) -> float:
+    """Median device milliseconds of one call of ``fn`` over ``reps``
+    calls after ``warm``.  Each call is bracketed by CUDA events behind
+    a ``torch.cuda._sleep`` that keeps the card busy while the host
+    enqueues it, so the events see the device's time, not the host's."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in times)
 
 
 def device_time_us(evt) -> float:
@@ -252,8 +294,7 @@ def main() -> int:
     requests = [rng.standard_normal((b, hw, hw, c)).astype(np.float32)
                 for b in (1, 2, 4)]
     res_img = rng.standard_normal((1, hw, hw, c)).astype(np.float32)
-    interp.bitslice_mac_cuda.launches = 0
-    fused.fused_mac_cuda.launches = 0
+    zero_launches()
     outs, res_outs, req_ms = {}, {}, {}
     for backend in ("cuda_fused", "cuda"):
         for img in requests:
@@ -265,11 +306,10 @@ def main() -> int:
             outs[(backend, img.shape[0])] = out
         res_outs[backend] = graphs[backend].run(res_img)
     torch.cuda.synchronize()
-    launches = {"bitslice_mac": interp.bitslice_mac_cuda.launches,
-                "fused_mac": fused.fused_mac_cuda.launches}
-    print(f"main-path launches: {launches}")
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel was not launched on the main path: {launches}")
+    launches = kernel_launches()
+    print(f"conv path launches: {launches}")
+    require(launches["bitslice_mac"] > 0 and launches["fused_mac"] > 0,
+            f"a kernel was not launched on the conv path: {launches}")
 
     for img in requests:
         b = img.shape[0]
@@ -440,12 +480,247 @@ def main() -> int:
     print(f"clocks.sm, power.draw, temperature.gpu after timing: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
 
+    params = lm_phase(args.seed, dev)
+    rows.append(dequant_phase(args.seed, dev, params, n_sm, clock_mhz))
+    print(f"clocks.sm, power.draw, temperature.gpu after the LM phases: "
+          f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernel_launches() -> dict:
+    from repro_torch.core.fused_backend import kernel as fused
+    from repro_torch.kernels.bitslice_mac import kernel as interp
+    from repro_torch.kernels.dequant_matmul import kernel as dq
+    return {"bitslice_mac": interp.bitslice_mac_cuda.launches,
+            "fused_mac": fused.fused_mac_cuda.launches,
+            "dequant_matmul": dq.dequant_matmul_cuda.launches}
+
+
+def zero_launches() -> None:
+    from repro_torch.core.fused_backend import kernel as fused
+    from repro_torch.kernels.bitslice_mac import kernel as interp
+    from repro_torch.kernels.dequant_matmul import kernel as dq
+    interp.bitslice_mac_cuda.launches = 0
+    fused.fused_mac_cuda.launches = 0
+    dq.dequant_matmul_cuda.launches = 0
+
+
+def trace_lm_steps(cfg, params, deq, seed: int, dev, steps: int = 3):
+    """One prefill and ``steps`` greedy decode steps of the LM under
+    ``torch.profiler``: for each phase the host time (synchronised), the
+    device's busy time, the kernel launches and the kernels with the
+    most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.steps import make_decode_step, make_prefill_step
+    gen = torch.Generator().manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           generator=gen).to(dev)
+    prefill = make_prefill_step(cfg, LM_PROMPT + LM_GEN, deq=deq)
+    step = make_decode_step(cfg, deq=deq)
+    cache, lg, length = prefill(params, {"tokens": prompt})
+    tok, lg, cache = step(params, lg.argmax(-1).to(torch.int32), length,
+                          cache)                          # warm
+    torch.cuda.synchronize()
+    out = {}
+    for phase, n in (("prefill", 1), ("decode", steps)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(n):
+                if phase == "prefill":
+                    prefill(params, {"tokens": prompt})
+                else:
+                    tok, lg, cache = step(params, tok, length + 1 + i,
+                                          cache)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / n
+        kern = [(device_time_us(e) / 1e3 / n, e.count / n, e.key)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        out[phase] = {"host_ms": host_ms,
+                      "busy_ms": sum(k[0] for k in kern),
+                      "launches": sum(k[1] for k in kern),
+                      "top": sorted(kern, reverse=True)[:4]}
+    return out
+
+
+def lm_phase(seed: int, dev) -> dict:
+    """qwen2-0.5b served at full width with float32 and with hobflops9
+    weights; returns the float32 parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.bitslice import unpack_planes_np
+    from repro_torch.core.softfloat import decode_storage_np, flush_subnormal
+    from repro_torch.launch.serve import serve_demo
+    from repro_torch.models import model_schema
+    from repro_torch.models.schema import init_params, param_count
+    from repro_torch.quant.apply import make_deq, quantize_params
+    from repro_torch.quant.storage import dequantize
+
+    cfg = get_config(LM_ARCH)
+    schema = model_schema(cfg)
+    t0 = time.perf_counter()
+    params = init_params(schema, torch.Generator().manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    print(f"{LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}: {param_count(schema)} parameters, "
+          f"initialised in {time.perf_counter() - t0:.1f} s")
+    serve = dict(batch=LM_BATCH, prompt_len=LM_PROMPT, gen_len=LM_GEN,
+                 seed=seed, params=params, device=dev,
+                 print_fn=lambda m: print(f"    {m}"))
+    print("serve_demo warm-up (float32 weights, 2 tokens; not reported):")
+    serve_demo(cfg, **{**serve, "gen_len": 2})
+    runs = {}
+    zero_launches()
+    for quant in (None, "hobflops9"):
+        print(f"serve_demo {LM_ARCH}, {quant or 'float32'} weights, batch "
+              f"{LM_BATCH}, prompt {LM_PROMPT}, {LM_GEN} tokens:")
+        st = {}
+        runs[quant] = (serve_demo(cfg, quant=quant, stats=st, **serve), st)
+        require(bool(torch.isfinite(st["logits"]).all()),
+                f"serve_demo ({quant}): logits not finite")
+        require(st["logits"].shape == (LM_GEN, LM_BATCH, cfg.vocab_padded),
+                f"serve_demo ({quant}): logits {tuple(st['logits'].shape)}")
+        line = (f"    prefill {st['prefill_ms']:.3f} ms, decode "
+                f"{st['decode_ms_per_step']:.3f} ms/step, "
+                f"{st['tok_s']:.1f} tok/s")
+        if quant:
+            q, d = st["quantized_bytes"]
+            line += (f"; quantize_params {st['quantize_s'] * 1e3:.1f} ms, "
+                     f"{q} B of planes and scales against {d} B in bf16 "
+                     f"({q / d:.4f})")
+        print(line)
+    print(f"LM path launches (the dequant hook decodes with torch ops, as "
+          f"the reference's does): {kernel_launches()}")
+    a, b = runs[None][0], runs["hobflops9"][0]
+    print(f"greedy agreement float32 vs hobflops9: "
+          f"{(a == b).mean():.4f} of {a.size} tokens (untrained weights; "
+          f"informational)")
+
+    # Layer 0's w_up decoded on the card against a numpy decode of its
+    # codes.
+    qparams, _ = quantize_params(params, cfg, "hobflops9")
+    qt = qparams["blocks"]["b0"]["mlp"]["w_up"].layer(0)
+    got = dequantize(qt).cpu().numpy()
+    n = int(np.prod(qt.shape))
+    codes = unpack_planes_np(qt.data.cpu().numpy(), n, lane_bits=32)
+    scale = np.float32(qt.scale.cpu().numpy())
+    vals = flush_subnormal(decode_storage_np(codes, qt.sfmt), np)
+    want = flush_subnormal(vals.reshape(qt.shape) * scale, np)
+    require(got.view(np.int32).tolist() == want.view(np.int32).tolist(),
+            "layer 0 w_up: card dequantize != numpy decode")
+    print(f"layer 0 w_up {qt.shape}: dequantized on the card == numpy "
+          f"decode of its {qt.sfmt.nbits}-bit codes, bit for bit")
+
+    # Where a serving step's time goes, traced.
+    for quant, (ps, deq) in (("float32", (params, None)),
+                             ("hobflops9", (qparams, make_deq()))):
+        for phase, tr in trace_lm_steps(cfg, ps, deq, seed, dev).items():
+            print(f"traced {LM_ARCH} {quant} {phase} (a step): host "
+                  f"{tr['host_ms']:.3f} ms, device busy {tr['busy_ms']:.3f}"
+                  f" ms ({100 * tr['busy_ms'] / tr['host_ms']:.1f}%), "
+                  f"{tr['launches']:.0f} kernel launches")
+            for ms, n, name in tr["top"]:
+                print(f"    {ms:8.3f} ms {n:6.0f}x  {name[:90]}")
+    return params
+
+
+def dequant_phase(seed: int, dev, params: dict, n_sm: int,
+                  clock_mhz: float) -> dict:
+    """The dequant matmul at qwen2-0.5b's quantized projection shapes:
+    counted run through the entry point, then each point against its
+    plain version and timed.  Returns the kernel's JSON row."""
+    from repro_torch.core.fpformat import StorageFormat
+    from repro_torch.kernels.dequant_matmul.ops import (dequant_matmul,
+                                                        pack_weights)
+    from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_ref
+    from repro_torch.quant.storage import dequantize
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fp32_peak = n_sm * FP32_LANES_PER_SM * 2 * clock_mhz * 1e6  # derived
+    sfmt = StorageFormat(5, 3)                                  # hobflops9
+    b0 = params["blocks"]["b0"]
+    shapes = {"wq/wo": b0["attn"]["wq"][0], "wk/wv": b0["attn"]["wk"][0],
+              "w_gate/w_up": b0["mlp"]["w_gate"][0],
+              "w_down": b0["mlp"]["w_down"][0]}
+    packed = {name: pack_weights(w, sfmt) for name, w in shapes.items()}
+    gen = torch.Generator().manual_seed(seed + 1)
+    xs = {(name, M): torch.randn((M, qt.shape[0]), generator=gen).to(dev)
+          for name, qt in packed.items() for M in DQ_MS}
+    torch.cuda.synchronize()
+
+    zero_launches()
+    outs = {key: dequant_matmul(x, packed[key[0]]) for key, x in xs.items()}
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    print(f"dequant_matmul path launches: {launches}")
+    require(launches["dequant_matmul"] == len(xs),
+            f"dequant_matmul launched {launches['dequant_matmul']} times "
+            f"for {len(xs)} calls")
+
+    print(f"derived float32 FMA peak {fp32_peak / 1e12:.2f} TFLOP/s "
+          f"({n_sm} SMs x {FP32_LANES_PER_SM} lanes x 2 x {clock_mhz:.0f} "
+          f"MHz)")
+    points, max_ratio, max_err = [], 0.0, 0.0
+    for (name, M), x in xs.items():
+        qt = packed[name]
+        K, N = qt.shape
+        got = outs[(name, M)]
+        want = dequant_matmul_ref(x, qt.data, qt.scale, sfmt, N)
+        w = dequantize(qt)
+        bound = 2 * K * 2.0 ** -24 * (x.abs() @ w.abs())
+        diff = (got - want).abs()
+        require(bool(torch.isfinite(got).all()) and
+                bool((diff <= bound).all()),
+                f"dequant_matmul {name} M={M}: outside the float32 "
+                f"summation bound")
+        ratio = float((diff / bound.clamp(min=1e-30)).max())
+        max_ratio, max_err = max(max_ratio, ratio), max(max_err,
+                                                        float(diff.max()))
+        ms = median_device_ms(lambda: dequant_matmul(x, qt))
+        plain_ms = median_device_ms(
+            lambda: dequant_matmul_ref(x, qt.data, qt.scale, sfmt, N))
+        lib_ms = median_device_ms(lambda: torch.matmul(x, w))
+        nbytes = 4 * (x.numel() + qt.data.numel() + M * N)
+        ops_ms = 2 * M * K * N / fp32_peak * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        pt = dict(shape=name, M=M, K=K, N=N, ms=ms, plain_ms=plain_ms,
+                  library_ms=lib_ms, bound_ms=max(ops_ms, bytes_ms),
+                  bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                  max_bound_ratio=ratio)
+        points.append(pt)
+        print(f"dequant_matmul {name} M={M} K={K} N={N}: {ms:.4f} ms; "
+              f"bound {pt['bound_ms']:.4f} ms ({pt['bound_by']}; "
+              f"{2 * M * K * N:.3e} flop, {nbytes / 1e6:.2f} MB), share "
+              f"{pt['bound_ms'] / ms:.3f}; plain {plain_ms:.4f} ms; "
+              f"torch.matmul on the decoded weight {lib_ms:.4f} ms; max "
+              f"|err| / bound {ratio:.4f}")
+    print(f"dequant_matmul vs plain version: within the float32 summation "
+          f"bound at all {len(points)} points, largest ratio "
+          f"{max_ratio:.4f}, max abs err {max_err:.3e}")
+    by = {b: sum(p["bound_ms"] for p in points if p["bound_by"] == b)
+          for b in ("operations", "bytes")}
+    return {
+        "name": "dequant_matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/dequant_matmul.cu",
+        "replaces": "src/repro/kernels/dequant_matmul/kernel.py:64",
+        "launches": launches["dequant_matmul"], "max_abs_err": max_err,
+        "ms": sum(p["ms"] for p in points),
+        "plain_ms": sum(p["plain_ms"] for p in points),
+        "bound_ms": sum(p["bound_ms"] for p in points),
+        "bound_by": max(by, key=by.get),
+        "library_ms": sum(p["library_ms"] for p in points),
+        "shape": f"sum over {LM_ARCH}'s 4 projection shapes x M "
+                 f"{DQ_MS}, hobflops9",
+        "max_bound_ratio": max_ratio, "points": points,
+    }
 
 
 if __name__ == "__main__":

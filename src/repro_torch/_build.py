@@ -189,6 +189,17 @@ def check_blocks(p_block: int, m_block: int, ct: int, smem: int) -> None:
                          f"{p_block * m_block} threads, {smem} B shared")
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  A CUDA device on a machine
+    without a card raises: entry points never fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but no CUDA device "
+                           f"is available; pass device='cpu' to run the "
+                           f"kernels' plain versions")
+    return device
+
+
 def require_cuda(*tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous int32 CUDA tensor on
     one device."""

@@ -1,0 +1,18 @@
+"""olmoe-1b-7b [moe] — 16L d_model=2048 16H (GQA kv=16) d_ff=1024
+vocab=50304, MoE 64 experts top-8, qk-norm.  [arXiv:2409.02060; hf]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="olmoe-1b-7b",
+    family="moe",
+    n_layers=16,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=1024,
+    vocab=50304,
+    qk_norm=True,
+    moe_experts=64,
+    moe_top_k=8,
+    moe_layer_period=1,
+)

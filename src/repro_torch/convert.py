@@ -1,18 +1,21 @@
-"""Carry the JAX package's encoded conv weights across as numpy.
+"""Carry the JAX package's parameters across as numpy.
 
 Both packages encode the same f32 kernels to the same bit planes; these
 helpers wrap planes produced by the reference (``np.asarray`` of its
-``ConvWeights.planes``) as the port's :class:`ConvWeights`, so a test
-can feed both packages identical parameters.  Nothing here imports the
-reference: the planes arrive as plain arrays.
+``ConvWeights.planes``) as the port's :class:`ConvWeights`, and an LM
+parameter tree (``jax.tree.map(np.asarray, params)``) as the port's
+tree, so a test can feed both packages identical parameters.  Nothing
+here imports the reference: everything arrives as plain arrays.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.fpformat import FPFormat
-from repro_torch.kernels.conv2d_bitslice.ops import ConvWeights, resolve_device
+from repro_torch._build import resolve_device
+from repro_torch.core.fpformat import FPFormat, StorageFormat
+from repro_torch.kernels.conv2d_bitslice.ops import ConvWeights
+from repro_torch.quant.storage import QuantizedTensor
 
 
 def conv_weights_from_jax(planes: np.ndarray, kh: int, kw: int, cin: int,
@@ -34,3 +37,26 @@ def graph_weights_from_jax(weights: dict, device="cuda") -> dict:
     ``{node: ConvWeights}``, ready for ``NetworkGraph.conv``."""
     return {name: conv_weights_from_jax(planes, *geometry, device=device)
             for name, (planes, geometry) in weights.items()}
+
+
+def lm_params_from_jax(tree, device="cuda"):
+    """A reference LM parameter tree as numpy -> the port's tree on
+    ``device``.  Dicts keep their keys; arrays become tensors; a
+    quantized leaf arrives as ``(data, scale, (w_e, w_f), layout,
+    shape)`` and becomes a :class:`QuantizedTensor`."""
+    device = resolve_device(device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            data, scale, (w_e, w_f), layout, shape = t
+            return QuantizedTensor(
+                data=torch.from_numpy(np.array(data)).to(device),
+                scale=torch.from_numpy(np.array(scale, np.float32))
+                .to(device),
+                sfmt=StorageFormat(w_e, w_f), layout=layout,
+                shape=tuple(shape))
+        return torch.from_numpy(np.array(t)).to(device)
+
+    return walk(tree)

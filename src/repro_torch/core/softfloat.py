@@ -10,7 +10,9 @@ float32 <-> code codecs of the torch port.
 
 2. **Codecs** ``encode_torch`` / ``decode_torch``: float32 <-> int32
    code words as pure integer and bitcast tensor ops, so they run on the
-   card as well as on the CPU.
+   card as well as on the CPU; ``encode_storage`` / ``decode_storage``
+   do the same for the exception-free weight codes of
+   :class:`~repro_torch.core.fpformat.StorageFormat`.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from .fpformat import (EXC_INF, EXC_NAN, EXC_NORMAL, EXC_ZERO, RNE, RTZ,
-                       FPFormat)
+                       FPFormat, StorageFormat)
 
 _GUARD = 3  # guard/round/sticky bits carried through the adder datapath
 
@@ -473,3 +475,73 @@ def decode_torch(codes: torch.Tensor, fmt: FPFormat) -> torch.Tensor:
     val = torch.where(exc == EXC_INF, float("inf") * sgn, val)
     val = torch.where(exc == EXC_NAN, float("nan"), val)
     return val
+
+
+# ---------------------------------------------------------------------------
+# StorageFormat (exception-free) weight codes.
+# ---------------------------------------------------------------------------
+FLT_MIN = 2.0 ** -126   # the smallest normal float32
+
+
+def flush_subnormal(t, xp=torch):
+    """Subnormal float32 values -> zero of the same sign.
+
+    The reference's platforms flush subnormals (XLA on the CPU runs with
+    flush-to-zero and denormals-are-zero, and the TPU has no
+    subnormals), so the quantizer flushes where the reference's float
+    arithmetic would: the scale, the weights it divides and the products
+    of the dequantizer.  With a ``w_e = 8`` format the default scale,
+    ``amax / 2**127``, is itself subnormal and flushes to 0, as it does
+    in the reference."""
+    return xp.where(abs(t) < FLT_MIN, t * 0, t)
+
+
+def encode_storage(x: torch.Tensor, sfmt: StorageFormat,
+                   rounding: str = RNE) -> torch.Tensor:
+    """float32 -> StorageFormat codes (int32).  Saturating: inf/nan and
+    overflow clamp to the max-magnitude finite code; underflow flushes
+    to the zero code."""
+    fmt = FPFormat(sfmt.w_e, sfmt.w_f)
+    codes = encode_torch(x, fmt, rounding)
+    frac = codes & ((1 << fmt.w_f) - 1)
+    exp = (codes >> fmt.exp_off) & ((1 << fmt.w_e) - 1)
+    sign = (codes >> fmt.sign_off) & 1
+    exc = (codes >> fmt.exc_off) & 3
+    # nudge +/-2^-bias (exp=0, frac=0) to frac=1 so code 0 stays "zero"
+    frac = torch.where((exc == EXC_NORMAL) & (exp == 0) & (frac == 0),
+                       1, frac)
+    # saturate inf/nan to max finite
+    sat = (exc == EXC_INF) | (exc == EXC_NAN)
+    exp = torch.where(sat, sfmt.emax, exp)
+    frac = torch.where(sat, (1 << sfmt.w_f) - 1, frac)
+    normal = (exc == EXC_NORMAL) | sat
+    code = torch.where(normal, frac | (exp << sfmt.w_f)
+                       | (sign << (sfmt.w_e + sfmt.w_f)), 0)
+    return code.to(torch.int32)
+
+
+def decode_storage(codes: torch.Tensor, sfmt: StorageFormat) -> torch.Tensor:
+    """StorageFormat codes -> float32 by bit assembly; code 0 is +0."""
+    c = codes.to(torch.int32)
+    frac = c & ((1 << sfmt.w_f) - 1)
+    exp = (c >> sfmt.w_f) & ((1 << sfmt.w_e) - 1)
+    sign = (c >> (sfmt.w_e + sfmt.w_f)) & 1
+    e8 = exp - sfmt.bias + 127
+    bits = ((sign << 31) | (e8 << 23)
+            | (frac << (23 - sfmt.w_f))).to(torch.int32)
+    val = bits.view(torch.float32)
+    return torch.where(c == 0, torch.zeros((), dtype=torch.float32,
+                                           device=c.device), val)
+
+
+def decode_storage_np(codes: np.ndarray, sfmt: StorageFormat) -> np.ndarray:
+    """numpy twin of :func:`decode_storage`: the host-side check of a
+    decode done on the card."""
+    c = np.asarray(codes).astype(np.int64)
+    frac = c & ((1 << sfmt.w_f) - 1)
+    exp = (c >> sfmt.w_f) & ((1 << sfmt.w_e) - 1)
+    sign = (c >> (sfmt.w_e + sfmt.w_f)) & 1
+    e8 = exp - sfmt.bias + 127
+    bits = (sign << 31) | (e8 << 23) | (frac << (23 - sfmt.w_f))
+    val = bits.astype(np.uint32).view(np.float32)
+    return np.where(c == 0, np.float32(0.0), val)

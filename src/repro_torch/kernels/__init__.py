@@ -1,25 +1,29 @@
 """The port's kernels: the bitslice MAC interpreter
-(``bitslice_mac``) and the convolution/network path built on it and on
-the fused backend (``conv2d_bitslice``)."""
+(``bitslice_mac``), the convolution/network path built on it and on
+the fused backend (``conv2d_bitslice``), and the fused bitplane-dequant
+matmul of quantized LM weights (``dequant_matmul``)."""
 from __future__ import annotations
 
 
 def build_kernels(fused_variants=()) -> list:
-    """Build both CUDA kernels ahead of a run, one ``nvcc`` per source,
-    started together: the interpreter and one library holding every
-    ``(fmt, k, extended, rounding, relu)`` fused variant listed (see
-    ``NetworkGraph.fused_variants``).  Returns the loaded libraries,
-    whose ``ptxas_log`` carries the ``-Xptxas -v`` report."""
+    """Build every CUDA kernel ahead of a run, one ``nvcc`` per source,
+    started together: the interpreter, the dequant matmul, and one
+    library holding every ``(fmt, k, extended, rounding, relu)`` fused
+    variant listed (see ``NetworkGraph.fused_variants``).  Returns the
+    loaded libraries, whose ``ptxas_log`` carries the ``-Xptxas -v``
+    report."""
     from repro_torch import _build
     from repro_torch.core.fused_backend import kernel as fused
     from repro_torch.kernels.bitslice_mac import kernel as interp
+    from repro_torch.kernels.dequant_matmul import kernel as dq
 
     variants = sorted(set(fused_variants), key=lambda v: fused.variant_tag(*v))
-    jobs = [interp.build_job()]
+    jobs = [interp.build_job(), dq.build_job()]
     if variants:
         jobs.append(fused.build_job(variants))
     libs = _build.build(jobs)
     interp.load(libs[0])
+    dq.load(libs[1])
     if variants:
-        fused.load(libs[1], variants)
+        fused.load(libs[2], variants)
     return libs

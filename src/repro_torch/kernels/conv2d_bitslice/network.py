@@ -50,6 +50,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch._build import resolve_device
 from repro_torch.core import softfloat as sf
 from repro_torch.core.fpformat import RNE, FPFormat
 from repro_torch.core.fused_backend import fused_variant
@@ -65,8 +66,7 @@ from repro_torch.kernels.conv2d_bitslice.ops import (ConvWeights, _conv_pad,
                                                      hobflops_conv2d,
                                                      maxpool2d_activations,
                                                      neg_inf_code,
-                                                     relu_activations,
-                                                     resolve_device)
+                                                     relu_activations)
 
 @dataclasses.dataclass(frozen=True)
 class GraphNode:

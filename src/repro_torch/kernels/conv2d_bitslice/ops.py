@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import _build
+from repro_torch._build import resolve_device
 from repro_torch.core import softfloat as sf
 from repro_torch.core.bitslice import (BitsliceActivation, pack_planes,
                                        unpack_planes, window_gather_planes)
@@ -46,17 +47,6 @@ from repro_torch.kernels.bitslice_mac.kernel import (add_netlist_fn,
 from repro_torch.kernels.bitslice_mac.ops import (LANE, _pad_to,
                                                   encode_weight_planes,
                                                   mac_planes)
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on.  A CUDA device on a machine
-    without a card raises: entry points never fall back to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but no CUDA device "
-                           f"is available; pass device='cpu' to run the "
-                           f"kernels' plain versions")
-    return device
 
 
 def _conv_pad(H: int, W: int, kh: int, kw: int, stride: int,

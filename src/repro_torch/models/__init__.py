@@ -1,0 +1,8 @@
+"""Model substrate: configs, schemas, layers and the dense LM stack."""
+from .config import ModelConfig, QuantConfig, ShapeConfig, SHAPES
+from .transformer import (decode_step, forward_logits, init_cache,
+                          model_schema, prefill)
+
+__all__ = ["ModelConfig", "QuantConfig", "ShapeConfig", "SHAPES",
+           "model_schema", "forward_logits", "prefill", "decode_step",
+           "init_cache"]

@@ -1,0 +1,119 @@
+"""Core layers: norms, embeddings, rotary embedding, gated MLP, logits.
+
+All functions are pure; parameters arrive as dict subtrees produced by
+the schemas in :mod:`repro_torch.models.schema`.  Weight matmuls
+optionally route through HOBFLOPS-quantized weights
+(``repro_torch.quant``) by a dequant hook ``deq(name, leaf)``.
+Float matmuls run in float32 with TF32 off (set by the entry points).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .schema import P
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """A config's dtype name (``"float32"``, ``"bfloat16"``) as a torch
+    dtype."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rmsnorm_schema(d: int):
+    return {"scale": P((d,), ("embed",), "ones")}
+
+
+def rmsnorm(p, x, eps: float):
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+def embed_schema(cfg: ModelConfig):
+    return {"table": P((cfg.vocab_padded, cfg.d_model), ("vocab", "embed"),
+                       "normal", scale=1.0)}
+
+
+def embed(p, tokens, cfg: ModelConfig):
+    return p["table"][tokens].to(dtype_of(cfg.compute_dtype))
+
+
+def logits_schema(cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return {}
+    return {"w": P((cfg.d_model, cfg.vocab_padded), ("embed", "vocab"))}
+
+
+def logits(p, x, cfg: ModelConfig, embed_params=None, deq=None):
+    """x [B, S, d] -> [B, S, V] float32.  The weight is rounded to the
+    activations' dtype, as the reference does; the product of two such
+    values is exact in float32, so both operands go to float32 and the
+    product accumulates in float32."""
+    if cfg.tie_embeddings:
+        w = embed_params["table"].T
+    else:
+        w = deq("w", p["w"]) if deq is not None else p["w"]
+    return x.to(torch.float32) @ w.to(x.dtype).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+def rope_angles(positions, d_head: int, theta: float):
+    """positions [...,] int -> (cos, sin) [..., d_head//2] f32."""
+    half = d_head // 2
+    ar = torch.arange(0, half, dtype=torch.float32, device=positions.device)
+    base = torch.full((), theta, dtype=torch.float32,
+                      device=positions.device)    # no host-to-device copy
+    freqs = torch.pow(base, -ar / half)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x [..., S, H, D]; cos/sin broadcastable [..., S, 1, D//2]."""
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+def mlp_schema(cfg: ModelConfig, d_ff: int | None = None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {"w_gate": P((d, f), ("embed", "mlp")),
+            "w_up": P((d, f), ("embed", "mlp")),
+            "w_down": P((f, d), ("mlp", "embed"))}
+
+
+def _act(name: str):
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
+def weight_getter(p, deq):
+    """``name -> weight`` of a parameter dict, through the dequant hook
+    when one is given."""
+    if deq is None:
+        return lambda n: p[n]
+    return lambda n: deq(n, p[n])
+
+
+def mlp(p, x, cfg: ModelConfig, deq=None):
+    """deq: optional weight-dequant hook (name, leaf) -> tensor, used by
+    the quantized serving path."""
+    get = weight_getter(p, deq)
+    h = _act(cfg.mlp_act)(x @ get("w_gate").to(x.dtype))
+    h = h * (x @ get("w_up").to(x.dtype))
+    return h @ get("w_down").to(x.dtype)

@@ -1,4 +1,4 @@
-"""The port's two CUDA kernels against their plain versions, and the
+"""The port's three CUDA kernels against their plain versions, and the
 fused emitter's C body against ``eval_netlist``.
 
 The ``gpu`` tests need a card and skip without one (each test decides,
@@ -16,10 +16,14 @@ import pytest
 import torch
 
 from repro_torch.core.codegen import eval_netlist
-from repro_torch.core.fpformat import HOBFLOPS_FORMATS, RNE, RTZ, FPFormat
+from repro_torch.core.fpformat import (HOBFLOPS_FORMATS, RNE, RTZ, FPFormat,
+                                       StorageFormat)
 from repro_torch.core.fused_backend import kernel as fused
 from repro_torch.kernels.bitslice_mac import kernel as interp
 from repro_torch.kernels.conv2d_bitslice.network import NetworkGraph
+from repro_torch.kernels.dequant_matmul import ops as dq
+from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_ref
+from repro_torch.quant.storage import QuantizedTensor, dequantize, quantize
 
 F8 = HOBFLOPS_FORMATS["hobflops8"]
 F9 = HOBFLOPS_FORMATS["hobflops9"]
@@ -122,6 +126,83 @@ def test_plain_backend_refuses_card(cuda):
     with pytest.raises(ValueError):
         mac_planes(i_masks.to(cuda), w_planes.to(cuda), fmt=F8,
                    backend="torch")
+
+
+# ---------------------------------------------------------------------------
+# The dequant matmul kernel
+# ---------------------------------------------------------------------------
+def _packed(rng, K, N, sfmt, scale=None):
+    """A ``bitplane2d`` tensor of seeded weights.  The w_e = 8 format gets
+    a given scale: its default one is subnormal and flushes to 0, which
+    makes every weight NaN (as in the reference)."""
+    w = torch.from_numpy((rng.standard_normal((K, N)) * 0.2)
+                         .astype(np.float32))
+    qt = quantize(w, sfmt, layout="bitplane", scale=scale)
+    return QuantizedTensor(qt.data.reshape(sfmt.nbits, K, N // 32),
+                           qt.scale, sfmt, "bitplane2d", (K, N))
+
+
+def _on(qt, device):
+    return QuantizedTensor(qt.data.to(device), qt.scale.to(device), qt.sfmt,
+                           qt.layout, qt.shape)
+
+
+def _within_sum_bound(got, want, x, w):
+    """The float32 summation bound of a K-term dot product, elementwise:
+    |got - want| <= 2 K 2**-24 (|x| @ |w|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bound = 2 * x.shape[1] * 2.0 ** -24 * (x.abs() @ w.abs())
+    return bool(((got - want).abs() <= bound).all())
+
+
+DQ_FORMATS = [(StorageFormat(5, 2), None), (StorageFormat(5, 3), None),
+              (StorageFormat(4, 3), None), (StorageFormat(8, 7), 2.0 ** -100)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sfmt,scale", DQ_FORMATS)
+@pytest.mark.parametrize("M,K,N", [(37, 75, 96), (3, 130, 160),
+                                   (129, 33, 32), (1, 896, 224)])
+def test_dequant_matmul_matches_plain_version(cuda, sfmt, scale, M, K, N):
+    """Ragged M, K and N = 32 x odd against the plain version on the card
+    and on the CPU."""
+    rng = np.random.default_rng(M * 1000 + K)
+    qt = _packed(rng, K, N, sfmt, scale)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    qg, xg = _on(qt, cuda), x.to(cuda)
+    got = dq.dequant_matmul(xg, qg)
+    want = dequant_matmul_ref(xg, qg.data, qg.scale, sfmt, N)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and bool(torch.isfinite(got).all())
+    assert _within_sum_bound(got, want, xg, dequantize(qg))
+    cpu = dq.dequant_matmul(x, qt)
+    assert _within_sum_bound(got.cpu(), cpu, x, dequantize(qt))
+
+
+@pytest.mark.gpu
+def test_dequant_matmul_tiles_agree_and_count(cuda):
+    """Each output is one FMA chain over k in order, so both tiles give
+    the same bits; every launch adds one to the count."""
+    rng = np.random.default_rng(5)
+    qt = _on(_packed(rng, 200, 352, StorageFormat(5, 3)), cuda)
+    x = torch.from_numpy(rng.standard_normal((70, 200))
+                         .astype(np.float32)).to(cuda)
+    n0 = dq.dequant_matmul_cuda.launches
+    outs = [dq.dequant_matmul(x, qt, tile=t) for t in ("m64", "m8")]
+    outs.append(dq.dequant_matmul(x[:5], qt))             # the m8 default
+    torch.cuda.synchronize()
+    assert dq.dequant_matmul_cuda.launches == n0 + 3
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    assert torch.equal(outs[2].view(torch.int32),
+                       outs[0][:5].view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_dequant_matmul_plain_backend_refuses_card(cuda):
+    qt = _on(_packed(np.random.default_rng(0), 8, 32, StorageFormat(5, 3)),
+             cuda)
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        dq.dequant_matmul(torch.ones(2, 8, device=cuda), qt, backend="torch")
 
 
 def test_launch_blocks_are_checked_before_launch():
