@@ -28,12 +28,13 @@ versions:
 7. serves qwen2-0.5b (24 layers, d_model 896, vocab 151936; random
    weights from ``torch.Generator().manual_seed(--seed)``) through
    ``serve_demo`` at batch 4, 128 prompt tokens, 16 generated, once with
-   float32 weights and once with hobflops9 bitplane weights: quantize
-   time, footprint, prefill and decode times, tokens/s, greedy
-   agreement; logits must be finite and layer 0's ``w_up`` dequantized
-   on the card must equal a numpy decode of its codes bit for bit; one
-   prefill and three decode steps of each are traced with
-   ``torch.profiler`` (host time, device busy time, kernel launches);
+   float32 weights and once with hobflops9 bitplane weights, each after
+   a 2-token warm-up call with the same weights: quantize time,
+   footprint, prefill and decode times, tokens/s, greedy agreement;
+   logits must be finite and layer 0's ``w_up`` dequantized on the card
+   must equal a numpy decode of its codes bit for bit; one prefill and
+   three decode steps of each are traced with ``torch.profiler`` (host
+   time, device busy time, kernel launches);
 8. runs the dequant matmul through its entry point at each quantized
    projection shape of that model, at M = 512 (a prefill's rows) and
    M = 4 (a decode step's), on layer 0's weights packed in hobflops9:
@@ -575,8 +576,10 @@ def lm_phase(seed: int, dev) -> dict:
     serve = dict(batch=LM_BATCH, prompt_len=LM_PROMPT, gen_len=LM_GEN,
                  seed=seed, params=params, device=dev,
                  print_fn=lambda m: print(f"    {m}"))
-    print("serve_demo warm-up (float32 weights, 2 tokens; not reported):")
-    serve_demo(cfg, **{**serve, "gen_len": 2})
+    for quant in (None, "hobflops9"):
+        print(f"serve_demo warm-up ({quant or 'float32'} weights, 2 tokens;"
+              f" not reported):")
+        serve_demo(cfg, quant=quant, **{**serve, "gen_len": 2})
     runs = {}
     zero_launches()
     for quant in (None, "hobflops9"):

@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.models.config import ModelConfig, ShapeConfig
+from repro_torch.models.config import ModelConfig
 
 ARCH_IDS = {
     "grok-1-314b": "grok_1_314b",
@@ -26,7 +26,6 @@ ARCH_IDS = {
     "mamba2-2.7b": "mamba2_2_7b",
     "seamless-m4t-medium": "seamless_m4t_medium",
 }
-ARCH_NAMES = list(ARCH_IDS)
 
 
 def get_config(name: str) -> ModelConfig:
@@ -59,6 +58,3 @@ def smoke_config(name: str) -> ModelConfig:
         frontend_dim=48 if cfg.frontend_dim else 0,
     )
 
-
-SMOKE_SHAPE = ShapeConfig("smoke", 64, 2, "train")
-SMOKE_DECODE = ShapeConfig("smoke_decode", 64, 2, "decode")

@@ -34,8 +34,8 @@
 // then each thread accumulates a TM x TN register tile with f32 FMAs.
 // Out-of-range rows, columns and K positions are masked here: x reads
 // as 0 and planes as code 0, which adds exactly +0 to every sum.
-// Two instantiations: a 64x64 tile for large M and an 8x32 tile, with
-// more blocks along N, for a decode step's few rows.
+// Two instantiations: a 64x64 tile for many rows and an 8x32 tile, with
+// more blocks along N, for up to 64 rows (the wrapper's SMALL_M).
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -26,9 +26,19 @@ from repro_torch.core.fpformat import StorageFormat
 from .ref import dequant_matmul_ref
 
 LANE = 32
-# Tile configurations of the source: (BM, BN, BK) by index.
-TILES = {"m64": 0, "m8": 1}
-SMALL_M = 16     # up to this many rows take the 8-row tile
+# Tile configurations of the source, by index: a 64x64 output tile, and
+# an 8x32 tile that gives a decode step's few rows more blocks along N.
+TILE_M64, TILE_M8 = 0, 1
+# Up to SMALL_M rows take the 8x32 tile.  A layer of qwen2-0.5b's
+# projections (2 wq/wo + 2 wk/wv + 2 w_gate/w_up + w_down) takes 0.47 of
+# the 64x64 tile's time with it at M <= 4, 0.71 at M = 64 and 1.09 at
+# M = 128 (scripts/torch_dequant_tiles.py on an H100 80GB HBM3, 700 W).
+SMALL_M = 64
+
+
+def tile_for(M: int) -> int:
+    """The tile configuration a launch over ``M`` rows uses."""
+    return TILE_M8 if M <= SMALL_M else TILE_M64
 
 
 def build_job() -> tuple[str, str]:
@@ -53,16 +63,30 @@ def _launch_fn():
     return _BOUND["launch"]
 
 
+def launch(x: torch.Tensor, planes: torch.Tensor, scale: torch.Tensor,
+           out: torch.Tensor, sfmt: StorageFormat, tile: int) -> None:
+    """Launch tile configuration ``tile`` on checked, contiguous CUDA
+    tensors, uncounted.  ``scripts/torch_dequant_tiles.py`` times both
+    configurations with it; everything else goes through
+    :func:`dequant_matmul_cuda`."""
+    (M, K), N = x.shape, out.shape[1]
+    with torch.cuda.device(x.device):
+        code = _launch_fn()(_build.ptr(x), _build.ptr(planes),
+                            _build.ptr(scale), _build.ptr(out), M, K, N,
+                            sfmt.nbits, sfmt.w_e, sfmt.w_f, tile,
+                            _build.stream_ptr())
+    _build.check(code, "dequant_matmul")
+
+
 def dequant_matmul_cuda(x: torch.Tensor, planes: torch.Tensor,
-                        scale: torch.Tensor, sfmt: StorageFormat, *, N: int,
-                        tile: str | None = None) -> torch.Tensor:
+                        scale: torch.Tensor, sfmt: StorageFormat, *,
+                        N: int) -> torch.Tensor:
     """``x [M, K] @ (decode(planes) * scale)`` -> ``[M, N]`` float32.
 
     On CUDA tensors this launches ``csrc/dequant_matmul.cu`` with the
-    ``tile`` configuration (default: ``"m8"`` for at most
-    :data:`SMALL_M` rows, else ``"m64"``); on CPU tensors it runs the
-    plain version.  Any M and K and any N that is a multiple of 32 run;
-    the output never depends on the tile.
+    tile :func:`tile_for` picks for M; on CPU tensors it runs the plain
+    version.  Any M and K and any N that is a multiple of 32 run; the
+    output never depends on the tile.
     """
     M, K = x.shape
     nbits, K2, Nw = planes.shape
@@ -79,17 +103,10 @@ def dequant_matmul_cuda(x: torch.Tensor, planes: torch.Tensor,
                          f"lie on one CUDA device: {x.device}, "
                          f"{planes.device}, {scale.device} {scale.dtype}")
     x = x.to(torch.float32).contiguous()
-    scale = scale.contiguous()
-    tile = tile or ("m8" if M <= SMALL_M else "m64")
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0:
         return out
-    with torch.cuda.device(x.device):
-        code = _launch_fn()(_build.ptr(x), _build.ptr(planes),
-                            _build.ptr(scale), _build.ptr(out), M, K, N,
-                            nbits, sfmt.w_e, sfmt.w_f, TILES[tile],
-                            _build.stream_ptr())
-    _build.check(code, "dequant_matmul")
+    launch(x, planes, scale.contiguous(), out, sfmt, tile_for(M))
     dequant_matmul_cuda.launches += 1
     return out
 

@@ -24,8 +24,7 @@ def pack_weights(w, sfmt: StorageFormat) -> QuantizedTensor:
 
 
 def dequant_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
-                   backend: str = "cuda",
-                   tile: str | None = None) -> torch.Tensor:
+                   backend: str = "cuda") -> torch.Tensor:
     """x [M, K] @ dequant(qt [K, N]) -> [M, N] f32.
 
     ``backend="cuda"`` launches the kernel on CUDA tensors (its wrapper
@@ -33,8 +32,7 @@ def dequant_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
     plain version and takes CPU tensors only."""
     K, N = qt.shape
     if backend == "cuda":
-        return dequant_matmul_cuda(x, qt.data, qt.scale, qt.sfmt, N=N,
-                                   tile=tile)
+        return dequant_matmul_cuda(x, qt.data, qt.scale, qt.sfmt, N=N)
     if backend != "torch":
         raise ValueError(f"unknown backend {backend!r}")
     if x.device.type != "cpu" or qt.data.device.type != "cpu":

@@ -21,6 +21,7 @@ from repro_torch.core.fpformat import (HOBFLOPS_FORMATS, RNE, RTZ, FPFormat,
 from repro_torch.core.fused_backend import kernel as fused
 from repro_torch.kernels.bitslice_mac import kernel as interp
 from repro_torch.kernels.conv2d_bitslice.network import NetworkGraph
+from repro_torch.kernels.dequant_matmul import kernel as dqk
 from repro_torch.kernels.dequant_matmul import ops as dq
 from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_ref
 from repro_torch.quant.storage import QuantizedTensor, dequantize, quantize
@@ -181,20 +182,26 @@ def test_dequant_matmul_matches_plain_version(cuda, sfmt, scale, M, K, N):
 
 @pytest.mark.gpu
 def test_dequant_matmul_tiles_agree_and_count(cuda):
-    """Each output is one FMA chain over k in order, so both tiles give
-    the same bits; every launch adds one to the count."""
+    """Each output is one FMA chain over k in order, so the rows of a
+    launch over many rows (64x64 tile) and of launches over a few rows
+    (8x32 tile up to SMALL_M rows) give the same bits; every launch adds
+    one to the count."""
     rng = np.random.default_rng(5)
     qt = _on(_packed(rng, 200, 352, StorageFormat(5, 3)), cuda)
-    x = torch.from_numpy(rng.standard_normal((70, 200))
+    x = torch.from_numpy(rng.standard_normal((600, 200))
                          .astype(np.float32)).to(cuda)
+    rows = (5, dqk.SMALL_M, dqk.SMALL_M + 1)
+    assert dqk.tile_for(600) == dqk.TILE_M64
+    assert [dqk.tile_for(m) for m in rows] == [dqk.TILE_M8, dqk.TILE_M8,
+                                               dqk.TILE_M64]
     n0 = dq.dequant_matmul_cuda.launches
-    outs = [dq.dequant_matmul(x, qt, tile=t) for t in ("m64", "m8")]
-    outs.append(dq.dequant_matmul(x[:5], qt))             # the m8 default
+    full = dq.dequant_matmul(x, qt)
+    outs = {m: dq.dequant_matmul(x[:m], qt) for m in rows}
     torch.cuda.synchronize()
-    assert dq.dequant_matmul_cuda.launches == n0 + 3
-    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
-    assert torch.equal(outs[2].view(torch.int32),
-                       outs[0][:5].view(torch.int32))
+    assert dq.dequant_matmul_cuda.launches == n0 + 1 + len(rows)
+    for m, out in outs.items():
+        assert torch.equal(out.view(torch.int32),
+                           full[:m].view(torch.int32)), m
 
 
 @pytest.mark.gpu
