@@ -84,9 +84,11 @@ def _body_name(fmt, k, extended, rounding) -> str:
     return "Body_" + variant_tag(fmt, k, extended, rounding, False)
 
 
-def fused_source(variants) -> str:
+def fused_source(variants, probe: bool = False) -> str:
     """CUDA source holding one C entry per ``(fmt, k, extended,
-    rounding, relu)`` variant; bodies are shared across epilogues."""
+    rounding, relu)`` variant; bodies are shared across epilogues.
+    ``probe`` adds each variant's measurement-only ``clock64`` entry
+    ``fused_mac_probe_<tag>`` (``scripts/torch_fused_probe.py``)."""
     variants = sorted(set(variants), key=lambda v: variant_tag(*v))
     parts = ['#include "fused_mac.cuh"', ""]
     seen = set()
@@ -97,16 +99,20 @@ def fused_source(variants) -> str:
             lowered = fused_chain_lowered(fmt, k, extended, rounding)
             parts.append(lowered.cuda_body(
                 body, SIGN_OFF=fmt.mult_out(extended).sign_off))
-        parts.append(f"HF_DEFINE_FUSED_LAUNCH(fused_mac_"
-                     f"{variant_tag(fmt, k, extended, rounding, relu)}, "
-                     f"{body}, {'true' if relu else 'false'})")
+        tag = variant_tag(fmt, k, extended, rounding, relu)
+        epilogue = "true" if relu else "false"
+        parts.append(f"HF_DEFINE_FUSED_LAUNCH(fused_mac_{tag}, {body}, "
+                     f"{epilogue})")
+        if probe:
+            parts.append(f"HF_DEFINE_FUSED_PROBE(fused_mac_probe_{tag}, "
+                         f"{body}, {epilogue})")
     return "\n".join(parts) + "\n"
 
 
-def build_job(variants) -> tuple[str, str]:
+def build_job(variants, probe: bool = False) -> tuple[str, str]:
     """The ``(name, source)`` pair :func:`_build.build` compiles for
-    these variants."""
-    src = fused_source(variants)
+    these variants (with their probe entries if ``probe``)."""
+    src = fused_source(variants, probe)
     return f"fused_mac_{hashlib.sha256(src.encode()).hexdigest()[:8]}", src
 
 

@@ -32,11 +32,15 @@
 
 #define HF_INLINE __device__ __forceinline__
 
-template <class Body, bool RELU>
+// PROBE instantiations (built only by scripts/torch_fused_probe.py)
+// stamp clock64() around each C tile's staging and chain body and write,
+// per warp, [staging cycles, body cycles, tiles, channels] to probe.
+template <class Body, bool RELU, bool PROBE>
 __global__ void fused_mac_kernel(const int32_t* __restrict__ i_masks,
                                  const int32_t* __restrict__ w_planes,
                                  int32_t* __restrict__ out, int P, int C,
-                                 int Mw, int ct) {
+                                 int Mw, int ct,
+                                 unsigned long long* __restrict__ probe) {
   constexpr int NIN = Body::NIN, NOUT = Body::NOUT, K = Body::K;
   extern __shared__ uint32_t smem[];
   const int tw = blockDim.x, tp = blockDim.y;
@@ -52,7 +56,10 @@ __global__ void fused_mac_kernel(const int32_t* __restrict__ i_masks,
 #pragma unroll
   for (int b = 0; b < NOUT; ++b) acc[b] = 0u;  // +0
 
+  unsigned long long stage_cyc = 0, body_cyc = 0, tiles = 0;
   for (int c0 = 0; c0 < C; c0 += ct) {
+    long long t0 = 0, t1 = 0;
+    if (PROBE) t0 = clock64();
     __syncthreads();
     for (int idx = tid; idx < ct * NIN * tw; idx += nthr) {
       const int t = idx % tw, cb = idx / tw;
@@ -67,12 +74,26 @@ __global__ void fused_mac_kernel(const int32_t* __restrict__ i_masks,
           ? (uint32_t)i_masks[((size_t)p * C + c) * NIN + cb % NIN] : 0u;
     }
     __syncthreads();
+    if (PROBE) t1 = clock64();
     const int cend = min(ct, C - c0);
     const uint32_t* xw = wsm + tx * pitch;
     const uint32_t* yi = ism + ty * pitch;
 #pragma unroll 1
     for (int cc = 0; cc < cend; cc += K)
       Body::run(xw + cc * NIN, yi + cc * NIN, acc);
+    if (PROBE) {
+      stage_cyc += t1 - t0;
+      body_cyc += clock64() - t1;
+      ++tiles;
+    }
+  }
+  if (PROBE && (tid & 31) == 0) {
+    const size_t wi = ((size_t)(blockIdx.y * gridDim.x + blockIdx.x) *
+                           ((nthr + 31) / 32) + tid / 32) * 4;
+    probe[wi] = stage_cyc;
+    probe[wi + 1] = body_cyc;
+    probe[wi + 2] = tiles;
+    probe[wi + 3] = (unsigned long long)C;
   }
   if (RELU) {
     const uint32_t s = acc[Body::SIGN_OFF];
@@ -92,19 +113,20 @@ size_t fused_mac_smem_bytes(int tp, int tw, int ct) {
   return sizeof(uint32_t) * (size_t)(tw + tp) * (ct * Body::NIN + 1);
 }
 
-template <class Body, bool RELU>
+template <class Body, bool RELU, bool PROBE>
 int fused_mac_launch_t(const int32_t* i_masks, const int32_t* w_planes,
                        int32_t* out, int P, int C, int Mw, int tp, int tw,
-                       int ct, void* stream) {
+                       int ct, void* stream, unsigned long long* probe) {
   const size_t smem = fused_mac_smem_bytes<Body>(tp, tw, ct);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mac_kernel<Body, RELU>,
+      fused_mac_kernel<Body, RELU, PROBE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(tw, tp);
   const dim3 grid((Mw + tw - 1) / tw, (P + tp - 1) / tp);
-  fused_mac_kernel<Body, RELU><<<grid, block, smem, (cudaStream_t)stream>>>(
-      i_masks, w_planes, out, P, C, Mw, ct);
+  fused_mac_kernel<Body, RELU, PROBE>
+      <<<grid, block, smem, (cudaStream_t)stream>>>(i_masks, w_planes, out,
+                                                    P, C, Mw, ct, probe);
   return (int)cudaGetLastError();
 }
 
@@ -113,6 +135,15 @@ int fused_mac_launch_t(const int32_t* i_masks, const int32_t* w_planes,
   extern "C" int NAME(const int32_t* i_masks, const int32_t* w_planes,      \
                       int32_t* out, int P, int C, int Mw, int tp, int tw,   \
                       int ct, void* stream) {                               \
-    return fused_mac_launch_t<BODY, RELU>(i_masks, w_planes, out, P, C, Mw, \
-                                          tp, tw, ct, stream);              \
+    return fused_mac_launch_t<BODY, RELU, false>(                         \
+        i_masks, w_planes, out, P, C, Mw, tp, tw, ct, stream, nullptr);     \
+  }
+
+// The measurement-only entry of a variant: probe holds 4 words a warp.
+#define HF_DEFINE_FUSED_PROBE(NAME, BODY, RELU)                              \
+  extern "C" int NAME(const int32_t* i_masks, const int32_t* w_planes,      \
+                      int32_t* out, int P, int C, int Mw, int tp, int tw,   \
+                      int ct, void* stream, unsigned long long* probe) {    \
+    return fused_mac_launch_t<BODY, RELU, true>(                          \
+        i_masks, w_planes, out, P, C, Mw, tp, tw, ct, stream, probe);       \
   }

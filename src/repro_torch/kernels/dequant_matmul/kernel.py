@@ -2,11 +2,16 @@
 
 Port of ``repro.kernels.dequant_matmul.kernel.dequant_matmul_pallas``:
 weights stay in device memory as HOBFLOPS StorageFormat codes in
-``nbits`` bit planes (exactly ``nbits`` bits a weight), and each
-``[BK, BN]`` weight tile is rebuilt and decoded in shared memory right
-before the f32 FMAs consume it (``csrc/dequant_matmul.cu``; its header
-note says what bounds it on the H100).  No tensor cores: TF32 would
-break the reference's 1e-5 tolerance.
+``nbits`` bit planes (exactly ``nbits`` bits a weight), and each weight
+tile is rebuilt and decoded in shared memory right before the product
+consumes it (``csrc/dequant_matmul.cu``; its header note says what
+bounds it on the H100).  Two routes, by format (:func:`plan`):
+
+* **tensor cores** (``w_f <= 10``, ``w_e <= 8``): a decoded code is
+  exact in TF32, so the codes feed ``wgmma`` as they are, x in two TF32
+  halves, and ``scale`` is applied once in the epilogue;
+* **f32 FMAs** (``w_f > 10``): the decoded weight times ``scale`` in
+  f32 FMA chains.
 
 Layouts:
     x      : [M, K] float32
@@ -26,19 +31,51 @@ from repro_torch.core.fpformat import StorageFormat
 from .ref import dequant_matmul_ref
 
 LANE = 32
-# Tile configurations of the source, by index: a 64x64 output tile, and
-# an 8x32 tile that gives a decode step's few rows more blocks along N.
+# The FMA route's tile configurations, by index: a 64x64 output tile,
+# and an 8x32 tile that gives a decode step's few rows more blocks
+# along N.
 TILE_M64, TILE_M8 = 0, 1
-# Up to SMALL_M rows take the 8x32 tile.  A layer of qwen2-0.5b's
-# projections (2 wq/wo + 2 wk/wv + 2 w_gate/w_up + w_down) takes 0.47 of
-# the 64x64 tile's time with it at M <= 4, 0.71 at M = 64 and 1.09 at
-# M = 128 (scripts/torch_dequant_tiles.py on an H100 80GB HBM3, 700 W).
+# Up to SMALL_M rows take the FMA route's 8x32 tile, and on the tensor
+# core route each block owns one K chunk (more blocks along K).  For the
+# FMA tiles a layer of qwen2-0.5b's projections (2 wq/wo + 2 wk/wv + 2
+# w_gate/w_up + w_down) takes 0.47 of the 64x64 tile's time with the
+# 8x32 tile at M <= 4, 0.71 at M = 64 and 1.09 at M = 128
+# (scripts/torch_dequant_tiles.py on an H100 80GB HBM3, 700 W).
 SMALL_M = 64
+# A decoded code has w_f + 1 significant bits: exact in TF32 (10
+# explicit fraction bits) up to w_f = 10.
+TC_MAX_WF = 10
+# The tensor-core route sums K in chunks of KCHUNK, in chunk order, so
+# an output's order of accumulation depends on K alone.
+KCHUNK = 256
+TC_BN = 64                       # weight columns a block
+N_WIDTHS = (8, 16, 32, 64)       # rows of x a block, up to SMALL_M rows
+N_WIDTH_LARGE = 64               # rows of x a block above SMALL_M
 
 
 def tile_for(M: int) -> int:
-    """The tile configuration a launch over ``M`` rows uses."""
+    """The row-count class of a launch over ``M`` rows: ``TILE_M8`` up
+    to ``SMALL_M`` rows, else ``TILE_M64`` (the FMA route's tile)."""
     return TILE_M8 if M <= SMALL_M else TILE_M64
+
+
+def plan(M: int, K: int, sfmt: StorageFormat) -> dict:
+    """How a launch over ``M`` rows and ``K`` terms in ``sfmt`` runs.
+
+    ``route`` is ``"tensor_core"`` for ``w_f <= TC_MAX_WF`` and
+    ``w_e <= 8``, else ``"fma"`` (with the FMA ``tile``).  On the tensor
+    core route ``n_width`` is the rows of x a block takes (the smallest
+    of ``N_WIDTHS`` that holds M, or ``N_WIDTH_LARGE`` above SMALL_M),
+    ``chunks`` the K chunks of ``KCHUNK``, and ``split`` whether each
+    block owns one chunk (up to SMALL_M rows) or walks them all.
+    """
+    small = tile_for(M) == TILE_M8
+    if sfmt.w_f > TC_MAX_WF or sfmt.w_e > 8:
+        return {"route": "fma", "tile": tile_for(M)}
+    return {"route": "tensor_core",
+            "n_width": next(w for w in N_WIDTHS if w >= M) if small
+            else N_WIDTH_LARGE,
+            "chunks": -(-K // KCHUNK), "split": small}
 
 
 def build_job() -> tuple[str, str]:
@@ -55,26 +92,50 @@ def load(library: _build.Library) -> None:
     _BOUND["launch"] = _build.bind(
         library.lib, "dequant_matmul_launch",
         [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp])
+    _BOUND["tc_launch"] = _build.bind(
+        library.lib, "dequant_matmul_tc_launch",
+        [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp])
 
 
-def _launch_fn():
-    if "launch" not in _BOUND:
+def _entry(name: str):
+    if name not in _BOUND:
         load(_build.build([build_job()])[0])
-    return _BOUND["launch"]
+    return _BOUND[name]
 
 
 def launch(x: torch.Tensor, planes: torch.Tensor, scale: torch.Tensor,
            out: torch.Tensor, sfmt: StorageFormat, tile: int) -> None:
-    """Launch tile configuration ``tile`` on checked, contiguous CUDA
-    tensors, uncounted.  ``scripts/torch_dequant_tiles.py`` times both
-    configurations with it; everything else goes through
-    :func:`dequant_matmul_cuda`."""
+    """Launch the FMA route's tile configuration ``tile`` on checked,
+    contiguous CUDA tensors, uncounted.  ``scripts/torch_dequant_tiles.py``
+    and ``chip_smoke.py`` time the FMA tiles with it (the PR 12 kernel);
+    everything else goes through :func:`dequant_matmul_cuda`."""
     (M, K), N = x.shape, out.shape[1]
     with torch.cuda.device(x.device):
-        code = _launch_fn()(_build.ptr(x), _build.ptr(planes),
-                            _build.ptr(scale), _build.ptr(out), M, K, N,
-                            sfmt.nbits, sfmt.w_e, sfmt.w_f, tile,
-                            _build.stream_ptr())
+        code = _entry("launch")(_build.ptr(x), _build.ptr(planes),
+                                _build.ptr(scale), _build.ptr(out), M, K, N,
+                                sfmt.nbits, sfmt.w_e, sfmt.w_f, tile,
+                                _build.stream_ptr())
+    _build.check(code, "dequant_matmul")
+
+
+def launch_tc(x: torch.Tensor, planes: torch.Tensor, scale: torch.Tensor,
+              out: torch.Tensor, sfmt: StorageFormat, n_width: int,
+              split: bool) -> None:
+    """Launch the tensor-core route on checked, contiguous CUDA tensors,
+    uncounted; the split x and the chunk sums live in workspaces from
+    ``torch.empty``."""
+    (M, K), N = x.shape, out.shape[1]
+    Mp, Kt = -(-M // n_width) * n_width, -(-K // 32)
+    chunks = -(-K // KCHUNK)
+    xs = torch.empty(2 * Kt * Mp * 32, dtype=torch.float32, device=x.device)
+    part = torch.empty(chunks * M * N if split and chunks > 1 else 1,
+                       dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = _entry("tc_launch")(
+            _build.ptr(x), _build.ptr(planes), _build.ptr(scale),
+            _build.ptr(out), _build.ptr(xs), _build.ptr(part), M, K, N,
+            sfmt.nbits, sfmt.w_e, sfmt.w_f, n_width, int(split),
+            _build.stream_ptr())
     _build.check(code, "dequant_matmul")
 
 
@@ -83,10 +144,10 @@ def dequant_matmul_cuda(x: torch.Tensor, planes: torch.Tensor,
                         N: int) -> torch.Tensor:
     """``x [M, K] @ (decode(planes) * scale)`` -> ``[M, N]`` float32.
 
-    On CUDA tensors this launches ``csrc/dequant_matmul.cu`` with the
-    tile :func:`tile_for` picks for M; on CPU tensors it runs the plain
-    version.  Any M and K and any N that is a multiple of 32 run; the
-    output never depends on the tile.
+    On CUDA tensors this launches ``csrc/dequant_matmul.cu`` on the
+    route :func:`plan` picks; on CPU tensors it runs the plain version.
+    Any M and K and any N that is a multiple of 32 run; on either route
+    the output depends on M only through the rows it holds.
     """
     M, K = x.shape
     nbits, K2, Nw = planes.shape
@@ -104,9 +165,14 @@ def dequant_matmul_cuda(x: torch.Tensor, planes: torch.Tensor,
                          f"{planes.device}, {scale.device} {scale.dtype}")
     x = x.to(torch.float32).contiguous()
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    if M == 0:
-        return out
-    launch(x, planes, scale.contiguous(), out, sfmt, tile_for(M))
+    if M == 0 or K == 0:
+        return out.zero_()
+    p = plan(M, K, sfmt)
+    if p["route"] == "fma":
+        launch(x, planes, scale.contiguous(), out, sfmt, p["tile"])
+    else:
+        launch_tc(x, planes, scale.contiguous(), out, sfmt, p["n_width"],
+                  p["split"])
     dequant_matmul_cuda.launches += 1
     return out
 

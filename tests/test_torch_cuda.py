@@ -204,6 +204,57 @@ def test_dequant_matmul_tiles_agree_and_count(cuda):
                            full[:m].view(torch.int32)), m
 
 
+# (M, K, format) -> the route, n width, K chunks and split; a format
+# whose codes do not fit TF32 (w_f > 10) takes the FMA route's tile.
+ROUTES = [
+    (1, 896, StorageFormat(5, 3), "tensor_core", 8, 4, True),
+    (4, 4864, StorageFormat(5, 3), "tensor_core", 8, 19, True),
+    (9, 512, StorageFormat(8, 7), "tensor_core", 16, 2, True),
+    (33, 513, StorageFormat(4, 3), "tensor_core", 64, 3, True),
+    (64, 75, StorageFormat(5, 10), "tensor_core", 64, 1, True),
+    (65, 896, StorageFormat(5, 3), "tensor_core", 64, 4, False),
+    (512, 4864, StorageFormat(5, 2), "tensor_core", 64, 19, False),
+    (4, 896, StorageFormat(4, 11), "fma", dqk.TILE_M8, None, None),
+    (512, 896, StorageFormat(4, 11), "fma", dqk.TILE_M64, None, None),
+]
+
+
+@pytest.mark.parametrize("M,K,sfmt,route,width,chunks,split", ROUTES)
+def test_dequant_matmul_routing(M, K, sfmt, route, width, chunks, split):
+    p = dqk.plan(M, K, sfmt)
+    assert p["route"] == route
+    if route == "fma":
+        assert p == {"route": "fma", "tile": width}
+        assert width == dqk.tile_for(M)
+    else:
+        assert p == {"route": route, "n_width": width, "chunks": chunks,
+                     "split": split}
+        assert width >= min(M, dqk.N_WIDTH_LARGE) and chunks * dqk.KCHUNK >= K
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sfmt,M,K,N", [
+    (StorageFormat(5, 3), 4, 200, 96),      # K below one chunk
+    (StorageFormat(5, 3), 7, 1100, 160),    # K not a multiple of the chunk
+    (StorageFormat(5, 3), 70, 1100, 224),   # the same, every chunk a block
+    (StorageFormat(5, 10), 17, 640, 64),    # the widest TF32 fraction
+    (StorageFormat(4, 11), 5, 600, 96),     # w_f > 10: the FMA route
+    (StorageFormat(4, 11), 80, 600, 96),
+])
+def test_dequant_matmul_chunks_and_routes(cuda, sfmt, M, K, N):
+    rng = np.random.default_rng(M * 7 + K)
+    qt = _on(_packed(rng, K, N, sfmt), cuda)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)) \
+        .to(cuda)
+    n0 = dq.dequant_matmul_cuda.launches
+    got = dq.dequant_matmul(x, qt)
+    want = dequant_matmul_ref(x, qt.data, qt.scale, sfmt, N)
+    torch.cuda.synchronize()
+    assert dq.dequant_matmul_cuda.launches == n0 + 1
+    assert got.shape == (M, N) and bool(torch.isfinite(got).all())
+    assert _within_sum_bound(got, want, x, dequantize(qt))
+
+
 @pytest.mark.gpu
 def test_dequant_matmul_plain_backend_refuses_card(cuda):
     qt = _on(_packed(np.random.default_rng(0), 8, 32, StorageFormat(5, 3)),
