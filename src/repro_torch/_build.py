@@ -30,11 +30,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-# Hopper launch defaults of both kernels (see launch_blocks).  Values
-# never depend on them.
-THREADS = 64               # threads a block, over (lane word, row)
+# Hopper launch defaults of both MAC kernels (see launch_blocks).
+# Values never depend on them.
+THREADS = 64               # bitslice_mac: threads a block, (lane word, row)
+FUSED_THREADS = 32         # fused_mac: chain threads a block (one warp)
+FUSED_PRODUCERS = 3        # fused_mac: producer warps a chain warp
 M_BLOCK = 32               # lane words a block at most: one warp per row
-C_BLOCK = 32               # channels of the C tile in shared memory
+C_BLOCK = 32               # bitslice_mac: channels of the shared C tile
+FUSED_C_BLOCK = 8          # fused_mac: channels of a ring slot
 CHAIN_DEPTH = 4            # MAC steps a chain body is asked to take
 MAX_THREADS = 1024         # threads one block may hold
 MAX_SMEM = 232448          # bytes of shared memory one block may use
@@ -155,21 +158,28 @@ def chain_depth(C: int, c_unroll: int | None = None) -> int:
 
 def launch_blocks(P: int, C: int, Mw: int, *, p_block: int | None = None,
                   m_block: int | None = None, c_block: int | None = None,
-                  c_unroll: int | None = None) -> dict:
+                  c_unroll: int | None = None,
+                  kernel: str = "bitslice_mac") -> dict:
     """Launch parameters of either MAC kernel for ``P`` rows, ``C``
     channels and ``Mw`` lane words — the one place their defaults live.
 
-    A block is ``m_block x p_block`` threads over (lane word, row): up
-    to :data:`M_BLOCK` lane words and :data:`THREADS` threads in all, so
-    a batch-1 layer still spreads over many SMs.  ``c_block`` channels
-    are staged in shared memory a tile.  Given values are kept; missing
-    ones take these defaults clamped to the problem.  ``c_unroll`` is
-    always clamped (:func:`chain_depth`).
+    A block covers ``m_block x p_block`` (lane word, row) chains: up to
+    :data:`M_BLOCK` lane words and, for ``bitslice_mac``, :data:`THREADS`
+    threads in all; for ``fused_mac`` :data:`FUSED_THREADS` chain
+    threads — one chain warp a block, so a batch-1 layer's 98 chain
+    warps land on 98 SMs — beside as many producer threads.
+    ``c_block`` channels are staged a tile (:data:`C_BLOCK`) or a ring
+    slot (:data:`FUSED_C_BLOCK`).  Given values are kept; missing ones
+    take these defaults clamped to the problem.  ``c_unroll`` is always
+    clamped (:func:`chain_depth`).
     """
+    fused = {"bitslice_mac": False, "fused_mac": True}[kernel]
     m = m_block or min(M_BLOCK, Mw)
-    return {"p_block": p_block or min(max(1, THREADS // m), P),
+    threads = FUSED_THREADS if fused else THREADS
+    return {"p_block": p_block or min(max(1, threads // m), P),
             "m_block": m,
-            "c_block": c_block or min(C_BLOCK, C),
+            "c_block": c_block or min(FUSED_C_BLOCK if fused else C_BLOCK,
+                                      C),
             "c_unroll": chain_depth(C, c_unroll)}
 
 
@@ -179,14 +189,17 @@ def c_tile(c_block: int, k: int) -> int:
     return -(-max(1, c_block) // k) * k
 
 
-def check_blocks(p_block: int, m_block: int, ct: int, smem: int) -> None:
-    """Raise unless a block of ``m_block x p_block`` threads with a C
-    tile of ``ct`` channels and ``smem`` bytes of shared memory can
-    launch; a refused launch would never run."""
-    if min(p_block, m_block) < 1 or p_block * m_block > MAX_THREADS \
+def check_blocks(p_block: int, m_block: int, ct: int, smem: int,
+                 threads: int | None = None) -> None:
+    """Raise unless a block over ``m_block x p_block`` chains — of
+    ``threads`` threads, by default one a chain — with a C tile of
+    ``ct`` channels and ``smem`` bytes of shared memory can launch; a
+    refused launch would never run."""
+    threads = p_block * m_block if threads is None else threads
+    if min(p_block, m_block) < 1 or threads > MAX_THREADS \
             or smem > MAX_SMEM:
         raise ValueError(f"blocks p={p_block} m={m_block} c={ct} need "
-                         f"{p_block * m_block} threads, {smem} B shared")
+                         f"{threads} threads, {smem} B shared")
 
 
 def resolve_device(device) -> torch.device:

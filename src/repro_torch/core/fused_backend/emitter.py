@@ -6,11 +6,11 @@ into a :class:`LoweredNetlist`, which is both
 * **CUDA source** for the body of a fused kernel
   (:meth:`LoweredNetlist.cuda_body`): the ``_slot_schedule`` register
   allocation becomes a fixed-size file of ``uint32_t`` locals, every
-  gate one straight-line C expression, and the whole body a
-  ``static run(x, y, acc)`` that ``csrc/fused_mac.cuh`` inlines into its
-  C loop.  The text is plain C over ``uint32_t``, so a host C++
-  compiler builds it too (the CPU tests check it against
-  ``eval_netlist`` that way); and
+  gate one ``HF_LOP3`` — one ``lop3.b32`` with the gate's truth table in
+  ``csrc/fused_mac.cuh``, a plain C function elsewhere — and the whole
+  body a ``static run(...)`` that the kernel inlines into its C loop.
+  The text is plain C over ``uint32_t``, so a host C++ compiler builds
+  it too (the CPU tests check it against ``eval_netlist`` that way); and
 * a **plain torch body**: calling it with ``**{bus: planes}`` runs the
   same netlist with one torch op per gate, bit-identical to
   ``eval_netlist``.
@@ -20,11 +20,11 @@ whose peak live-slot count exceeds an explicitly requested file raises
 :class:`RegisterFileOverflow` before anything executes — the backend
 fails loudly rather than spilling silently.
 
-3-input LUT3 cells are emitted in algebraic normal form
-(``codegen.lut3_anf``) as C expressions; ptxas folds each into one
-``LOP3``.  Inline ``lop3.b32`` would need the truth table re-indexed:
-the netlist numbers minterms ``a + 2b + 4c``, PTX's ``immLut``
-``4a + 2b + c``.
+Every gate, 3-input LUT3 cells included, becomes one ``LOP3``: left
+to fold C expressions, ptxas spent 1026 ``LOP3`` on the 722 gates of
+hobflops9's 2-step chain (``scripts/torch_fused_probe.py``).  The
+netlist numbers a LUT3's minterms ``a + 2b + 4c``, PTX's ``immLut``
+``4a + 2b + c``; :func:`lop3_imm` re-indexes.
 """
 from __future__ import annotations
 
@@ -33,7 +33,25 @@ import weakref
 from repro_torch.core.circuit import (OP_AND, OP_ANDN, OP_INPUT, OP_LUT3,
                                       OP_MUX, OP_NOT, OP_OR, OP_XOR, TRUE,
                                       Graph)
-from repro_torch.core.codegen import _slot_schedule, lut3_anf, make_torch_fn
+from repro_torch.core.codegen import _slot_schedule, make_torch_fn
+
+# The C fallback of HF_LOP3 for a host compiler; csrc/fused_mac.cuh
+# defines HF_LOP3 as one lop3.b32 before any body.
+_HOST_LOP3 = """#ifndef HF_LOP3
+#define HF_LOP3(a, b, c, imm) hf_lop3_c((a), (b), (c), (imm))
+static inline uint32_t hf_lop3_c(uint32_t a, uint32_t b, uint32_t c,
+                                 uint32_t imm) {
+  uint32_t r = 0;
+  for (int i = 0; i < 8; ++i)
+    if ((imm >> i) & 1u)
+      r |= ((i & 4) ? a : ~a) & ((i & 2) ? b : ~b) & ((i & 1) ? c : ~c);
+  return r;
+}
+#endif"""
+
+# Truth tables of the 2-input ops over (a, b) = PTX's (0xF0, 0xCC).
+_OP_IMM = {OP_AND: 0xF0 & 0xCC, OP_OR: 0xF0 | 0xCC, OP_XOR: 0xF0 ^ 0xCC,
+           OP_ANDN: 0xF0 & ~0xCC & 0xFF, OP_NOT: ~0xF0 & 0xFF}
 
 
 class RegisterFileOverflow(RuntimeError):
@@ -50,13 +68,11 @@ class RegisterFileOverflow(RuntimeError):
             f"unset to size it from the schedule)")
 
 
-def _lut3_expr(tt: int, a: str, b: str, c: str) -> str:
-    negate, monos = lut3_anf(tt)
-    ins = (a, b, c)
-    terms = [" & ".join(ins[i] for i in range(3) if m & (1 << i))
-             for m in monos]
-    body = " ^ ".join(f"({t})" for t in terms) if terms else "0u"
-    return f"~({body})" if negate else body
+def lop3_imm(tt: int) -> int:
+    """PTX ``immLut`` of a LUT3 whose truth table ``tt`` has bit
+    ``a + 2b + 4c`` set where it is true (``lop3.b32 d, a, b, c``)."""
+    return sum(1 << i for i in range(8)
+               if tt >> (((i >> 2) & 1) | (i & 2) | ((i & 1) << 2)) & 1)
 
 
 class LoweredNetlist:
@@ -87,28 +103,37 @@ class LoweredNetlist:
         return self._gates
 
     def cuda_body(self, name: str, **constants: int) -> str:
-        """C++ source of ``struct name`` with ``static run(x, y, acc)``.
+        """C++ source of ``struct name`` with a ``static run(...)``.
 
-        Input bus ``x{j}`` bit ``b`` reads ``x[j*NIN + b]``, ``y{j}``
-        likewise from ``y``, ``acc`` bit ``b`` reads ``acc[b]``; output
-        bus ``out`` is written back to ``acc`` after every gate has run.
-        ``constants`` become ``static constexpr int`` members beside
-        ``NIN``, ``NOUT``, ``K`` and ``NSLOTS``.  The body expects the
-        macro ``HF_INLINE`` (``__device__ __forceinline__`` in CUDA,
-        ``inline`` on the host) and ``<cstdint>``.
+        Each input bus family ``x0, x1, ...`` (one letter and an index)
+        is read through a pointer of that letter: bit ``b`` of bus
+        ``x{j}`` is ``x[j * width + b]``.  The pointers are the
+        families' letters in order, then ``acc``: ``run(x, y, acc)`` for
+        the MAC chain and the multiplier, ``run(p, acc)`` for the
+        add-only chain.  Input bus ``acc`` bit ``b`` reads ``acc[b]``;
+        output bus ``out`` is written to ``acc`` after every gate has
+        run.  ``constants`` become ``static constexpr int`` members
+        beside ``NIN`` (the first family's width), ``NOUT``, ``K`` (its
+        bus count) and ``NSLOTS``.  The body expects the macro
+        ``HF_INLINE`` (``__device__ __forceinline__`` in CUDA,
+        ``inline`` on the host) and ``<cstdint>``; ``HF_LOP3`` falls
+        back to plain C where the includer has not defined it.
         """
         g = self.graph
-        k = sum(1 for bus in g.inputs if bus.startswith("x"))
-        nin = len(g.inputs["x0"])
+        families = sorted({bus[0] for bus in g.inputs if bus != "acc"})
+        width = {f: len(g.inputs[f"{f}0"]) for f in families}
+        k = sum(1 for bus in g.inputs if bus[0] == families[0]
+                and bus != "acc")
         nout = len(self.out_wires["out"])
-        consts = {"NIN": nin, "NOUT": nout, "K": k,
+        consts = {"NIN": width[families[0]], "NOUT": nout, "K": k,
                   "NSLOTS": self.regfile_size, **constants}
-        lines = [f"struct {name} {{"]
+        lines = [_HOST_LOP3, f"struct {name} {{"]
         lines += [f"  static constexpr int {key} = {val};"
                   for key, val in consts.items()]
-        lines.append("  static HF_INLINE void run(const uint32_t* __restrict__"
-                     " x, const uint32_t* __restrict__ y, uint32_t* "
-                     "__restrict__ acc) {")
+        params = ", ".join(f"const uint32_t* __restrict__ {f}"
+                           for f in families)
+        lines.append(f"  static HF_INLINE void run({params}, uint32_t* "
+                     f"__restrict__ acc) {{")
         regs = [f"r{i}" for i in range(self.regfile_size)]
         for i in range(0, len(regs), 16):
             lines.append("    uint32_t " + ", ".join(regs[i:i + 16]) + ";")
@@ -126,23 +151,19 @@ class LoweredNetlist:
                 if bus == "acc":
                     v = f"acc[{bit}]"
                 else:
-                    v = f"{bus[0]}[{int(bus[1:]) * nin + bit}]"
-            elif n.op == OP_NOT:
-                v = f"~{rd(cs[0], n.a)}"
-            elif n.op == OP_AND:
-                v = f"{rd(cs[0], n.a)} & {rd(cs[1], n.b)}"
-            elif n.op == OP_OR:
-                v = f"{rd(cs[0], n.a)} | {rd(cs[1], n.b)}"
-            elif n.op == OP_XOR:
-                v = f"{rd(cs[0], n.a)} ^ {rd(cs[1], n.b)}"
-            elif n.op == OP_ANDN:
-                v = f"{rd(cs[0], n.a)} & ~{rd(cs[1], n.b)}"
+                    v = f"{bus[0]}[{int(bus[1:]) * width[bus[0]] + bit}]"
+            elif n.op in _OP_IMM:
+                a_ = rd(cs[0], n.a)
+                b_ = a_ if n.op == OP_NOT else rd(cs[1], n.b)
+                v = f"HF_LOP3({a_}, {b_}, {a_}, 0x{_OP_IMM[n.op]:02x})"
             elif n.op == OP_MUX:
-                s, a, b = rd(cs[0], n.a), rd(cs[1], n.b), rd(cs[2], n.c)
-                v = f"{b} ^ ({s} & ({a} ^ {b}))"
+                # s ? a : b over (s, a, b) = (0xF0, 0xCC, 0xAA)
+                imm = (0xF0 & 0xCC) | (~0xF0 & 0xAA & 0xFF)
+                v = (f"HF_LOP3({rd(cs[0], n.a)}, {rd(cs[1], n.b)}, "
+                     f"{rd(cs[2], n.c)}, 0x{imm:02x})")
             elif n.op == OP_LUT3:
-                v = _lut3_expr(n.aux, rd(cs[0], n.a), rd(cs[1], n.b),
-                               rd(cs[2], n.c))
+                v = (f"HF_LOP3({rd(cs[0], n.a)}, {rd(cs[1], n.b)}, "
+                     f"{rd(cs[2], n.c)}, 0x{lop3_imm(n.aux):02x})")
             else:  # pragma: no cover
                 raise ValueError(f"bad op {n.op}")
             lines.append(f"    r{slot} = {v};")

@@ -1,11 +1,14 @@
 """The fused MAC-chain CUDA kernel and its plain torch version.
 
 Port of ``repro.core.pallas_backend.kernel.fused_mac_pallas``: one
-launch carries the whole layer — the K-step MAC chain netlist emitted
-as straight-line CUDA (:mod:`.emitter`), the channel reduction as a
-loop inside the block, and the ReLU epilogue after it
-(``csrc/fused_mac.cuh``, whose header note says what bounds it on the
-H100).
+launch carries the whole layer — the netlists emitted as straight-line
+CUDA (:mod:`.emitter`), the channel reduction as a loop inside the
+block, and the ReLU epilogue after it (``csrc/fused_mac.cuh``, whose
+header note says what bounds it on the H100).  With ``MUL_AHEAD``
+producer warps run the multiplier (:func:`fused_mul_lowered`) ahead of
+the chain warps, which run the add-only chain
+(:func:`fused_add_lowered`); without it the chain warps run the whole
+MAC chain (:func:`fused_chain_lowered`).
 
 Each (format, chain depth, extended, rounding, relu) variant is a C
 entry ``fused_mac_<tag>`` generated into one source; :func:`build_job`
@@ -25,14 +28,13 @@ from repro_torch.core.fpformat import RNE, FPFormat
 from repro_torch.core.opt import optimize_mapped
 
 from .emitter import LoweredNetlist, lower_netlist
+from .netlists import build_add_chain, build_mul_step
 
-# The fused body's chain depth: FUSED_DEPTH steps where that body holds
-# at most GATE_BUDGET gates, else one.  On the H100 no depth up to
-# hobflops16 k=4 spills (at most 168 registers a thread); timed over
-# both conv layers of the MobileNets stage, k=2 is the fastest depth or
-# within 0.6% of it for hobflops8, 9 and 11, odd k=3 is slower at every
-# format, and hobflops16 (1863 gates at k=2) is fastest at k=1; see
-# scripts/torch_fused_regfile.py and PERF.md.
+# The chain warps run the add-only chain over products the producer
+# warps multiply ahead (scripts/torch_fused_probe.py times both modes).
+MUL_AHEAD = True
+# The chain body's depth: FUSED_DEPTH steps where that body holds at
+# most GATE_BUDGET gates, else one (scripts/torch_fused_regfile.py).
 FUSED_DEPTH = 2
 GATE_BUDGET = 1000
 
@@ -49,6 +51,33 @@ def fused_chain_lowered(fmt: FPFormat, k: int, extended: bool,
     return lower_netlist(mapped)
 
 
+@functools.lru_cache(maxsize=None)
+def fused_add_lowered(fmt: FPFormat, k: int, extended: bool,
+                      rounding: str) -> LoweredNetlist:
+    """The optimized avx512-mapped k-step add-only chain over products
+    (:func:`.netlists.build_add_chain`), lowered once."""
+    return lower_netlist(optimize_mapped(
+        build_add_chain(fmt, k, extended, rounding), "avx512"))
+
+
+@functools.lru_cache(maxsize=None)
+def fused_mul_lowered(fmt: FPFormat, extended: bool,
+                      rounding: str) -> LoweredNetlist:
+    """The optimized avx512-mapped multiplier into the accumulator
+    format (:func:`.netlists.build_mul_step`), lowered once."""
+    return lower_netlist(optimize_mapped(
+        build_mul_step(fmt, extended, rounding), "avx512"))
+
+
+def chain_body(fmt: FPFormat, k: int, extended: bool, rounding: str,
+               ahead: bool = MUL_AHEAD) -> LoweredNetlist:
+    """The body the chain warps run: the add-only chain when multiplying
+    ahead, else the MAC chain."""
+    if ahead:
+        return fused_add_lowered(fmt, k, extended, rounding)
+    return fused_chain_lowered(fmt, k, extended, rounding)
+
+
 def fused_chain_k(fmt: FPFormat, extended: bool = False,
                   requested: int = _build.CHAIN_DEPTH,
                   rounding: str = RNE) -> int:
@@ -56,8 +85,8 @@ def fused_chain_k(fmt: FPFormat, extended: bool = False,
     at ``FUSED_DEPTH``, and 1 where that body has more than
     ``GATE_BUDGET`` gates.  Chain depth never changes values."""
     k = min(requested, FUSED_DEPTH)
-    if k > 1 and fused_chain_lowered(
-            fmt, k, extended, rounding).gate_count() > GATE_BUDGET:
+    if k > 1 and chain_body(fmt, k, extended,
+                            rounding).gate_count() > GATE_BUDGET:
         k = 1
     return k
 
@@ -80,39 +109,51 @@ def variant_tag(fmt: FPFormat, k: int, extended: bool, rounding: str,
             f"{'_relu' if relu else ''}")
 
 
-def _body_name(fmt, k, extended, rounding) -> str:
-    return "Body_" + variant_tag(fmt, k, extended, rounding, False)
-
-
-def fused_source(variants, probe: bool = False) -> str:
+def fused_source(variants, probe: bool = False,
+                 ahead: bool = MUL_AHEAD) -> str:
     """CUDA source holding one C entry per ``(fmt, k, extended,
-    rounding, relu)`` variant; bodies are shared across epilogues.
+    rounding, relu)`` variant; bodies are shared across variants.
     ``probe`` adds each variant's measurement-only ``clock64`` entry
-    ``fused_mac_probe_<tag>`` (``scripts/torch_fused_probe.py``)."""
+    ``fused_mac_probe_<tag>`` (``scripts/torch_fused_probe.py``);
+    ``ahead`` picks the multiply-ahead kernel."""
     variants = sorted(set(variants), key=lambda v: variant_tag(*v))
     parts = ['#include "fused_mac.cuh"', ""]
     seen = set()
-    for fmt, k, extended, rounding, relu in variants:
-        body = _body_name(fmt, k, extended, rounding)
-        if body not in seen:
-            seen.add(body)
-            lowered = fused_chain_lowered(fmt, k, extended, rounding)
+
+    def body(name, lowered, fmt, extended):
+        if name not in seen:
+            seen.add(name)
             parts.append(lowered.cuda_body(
-                body, SIGN_OFF=fmt.mult_out(extended).sign_off))
+                name, SIGN_OFF=fmt.mult_out(extended).sign_off))
+        return name
+
+    for fmt, k, extended, rounding, relu in variants:
+        base = variant_tag(fmt, k, extended, rounding, False)
+        if ahead:
+            chain = body("Add_" + base, fused_add_lowered(
+                fmt, k, extended, rounding), fmt, extended)
+            mul = body("Mul_" + variant_tag(fmt, 1, extended, rounding,
+                                            False),
+                       fused_mul_lowered(fmt, extended, rounding), fmt,
+                       extended)
+        else:
+            chain = mul = body("Mac_" + base, fused_chain_lowered(
+                fmt, k, extended, rounding), fmt, extended)
         tag = variant_tag(fmt, k, extended, rounding, relu)
-        epilogue = "true" if relu else "false"
-        parts.append(f"HF_DEFINE_FUSED_LAUNCH(fused_mac_{tag}, {body}, "
-                     f"{epilogue})")
+        args = (f"{chain}, {mul}, {'true' if ahead else 'false'}, "
+                f"{'true' if relu else 'false'}")
+        parts.append(f"HF_DEFINE_FUSED_LAUNCH(fused_mac_{tag}, {args})")
         if probe:
             parts.append(f"HF_DEFINE_FUSED_PROBE(fused_mac_probe_{tag}, "
-                         f"{body}, {epilogue})")
+                         f"{args})")
     return "\n".join(parts) + "\n"
 
 
-def build_job(variants, probe: bool = False) -> tuple[str, str]:
+def build_job(variants, probe: bool = False,
+              ahead: bool = MUL_AHEAD) -> tuple[str, str]:
     """The ``(name, source)`` pair :func:`_build.build` compiles for
     these variants (with their probe entries if ``probe``)."""
-    src = fused_source(variants, probe)
+    src = fused_source(variants, probe, ahead)
     return f"fused_mac_{hashlib.sha256(src.encode()).hexdigest()[:8]}", src
 
 
@@ -125,7 +166,7 @@ def load(library: _build.Library, variants) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for v in variants:
         _BOUND[v] = _build.bind(library.lib, f"fused_mac_{variant_tag(*v)}",
-                                [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp])
+                                [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp])
 
 
 def _launch_fn(variant):
@@ -134,10 +175,36 @@ def _launch_fn(variant):
     return _BOUND[variant]
 
 
-def smem_bytes(nin: int, p_block: int, m_block: int, c_block: int) -> int:
+def smem_bytes(nin: int, nout: int, p_block: int, m_block: int,
+               c_block: int, ahead: bool = MUL_AHEAD) -> int:
     """Dynamic shared memory of one fused block (mirrors
-    ``fused_mac_smem_bytes`` in the header)."""
-    return 4 * (m_block + p_block) * (c_block * nin + 1)
+    ``fused_mac_smem_bytes`` in the header): the ring's barriers and
+    C-tile slots of staged words (two when multiplying ahead, which adds
+    the ring of product planes)."""
+    stages, lanes = 3, -(-p_block * m_block // 32) * 32
+    raw = (m_block + p_block) * (c_block * nin + 1)
+    words = 2 * raw + stages * lanes * (c_block * nout + 1) if ahead \
+        else stages * raw
+    return 16 * stages + 4 * words
+
+
+def block_threads(p_block: int, m_block: int) -> int:
+    """Threads of one fused block: the chain warps over
+    ``p_block x m_block`` (row, lane word) chains and
+    ``_build.FUSED_PRODUCERS`` producer warps for each."""
+    return (1 + _build.FUSED_PRODUCERS) * (-(-p_block * m_block // 32) * 32)
+
+
+def ring_slot(c_block: int, k: int, nin: int, nout: int, p_block: int,
+              m_block: int) -> int:
+    """Channels of a ring slot: ``c_block`` rounded up to the chain depth
+    (``_build.c_tile``), less whole chain steps while the block's ring
+    would not fit in shared memory.  Values never depend on it."""
+    ct = _build.c_tile(c_block, k)
+    while ct > k and smem_bytes(nin, nout, p_block, m_block,
+                                ct) > _build.MAX_SMEM:
+        ct -= k
+    return ct
 
 
 def _fused_mac_torch(i_masks, w_planes, *, fmt: FPFormat, extended: bool,
@@ -176,7 +243,8 @@ def fused_mac_cuda(i_masks: torch.Tensor, w_planes: torch.Tensor, *,
     """Fused HOBFLOPS GEMM in bit planes with the optional ReLU
     epilogue: i_masks [P, C, NIN] in {0, -1}, w_planes [C, NIN, Mw] ->
     [NOUT, P, Mw] int32, one launch of :func:`fused_variant`'s variant
-    with blocks from :func:`_build.launch_blocks`.  CPU tensors run the
+    with blocks from :func:`_build.launch_blocks` (``p_block x m_block``
+    chain threads and as many producer threads).  CPU tensors run the
     plain version; any shape is accepted and the output never depends
     on the blocks."""
     P, C, nin = i_masks.shape
@@ -192,17 +260,20 @@ def fused_mac_cuda(i_masks: torch.Tensor, w_planes: torch.Tensor, *,
                                 relu=relu)
     _build.require_cuda(i_masks, w_planes)
     blk = _build.launch_blocks(P, C, Mw, p_block=p_block, m_block=m_block,
-                               c_block=c_block)
+                               c_block=c_block, kernel="fused_mac")
     p_block, m_block = blk["p_block"], blk["m_block"]
-    ct = _build.c_tile(blk["c_block"], k)
-    smem = smem_bytes(nin, p_block, m_block, ct)
-    _build.check_blocks(p_block, m_block, ct, smem)
+    nout = fmt.mult_out(extended).nbits
+    ct = ring_slot(blk["c_block"], k, nin, nout, p_block, m_block)
+    smem = smem_bytes(nin, nout, p_block, m_block, ct)
+    _build.check_blocks(p_block, m_block, ct, smem,
+                        threads=block_threads(p_block, m_block))
     fn = _launch_fn(variant)
-    out = torch.empty((fmt.mult_out(extended).nbits, P, Mw),
-                      dtype=torch.int32, device=i_masks.device)
+    out = torch.empty((nout, P, Mw), dtype=torch.int32,
+                      device=i_masks.device)
     with torch.cuda.device(i_masks.device):
         code = fn(_build.ptr(i_masks), _build.ptr(w_planes), _build.ptr(out),
-                  P, C, Mw, p_block, m_block, ct, _build.stream_ptr())
+                  P, C, Mw, p_block, m_block, ct, _build.FUSED_PRODUCERS,
+                  _build.stream_ptr())
     _build.check(code, "fused_mac")
     fused_mac_cuda.launches += 1
     return out

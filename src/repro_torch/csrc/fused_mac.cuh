@@ -1,4 +1,4 @@
-// Fused bitslice-parallel HOBFLOPS MAC: the k-step MAC chain netlist as
+// Fused bitslice-parallel HOBFLOPS MAC: the MAC chain netlist as
 // generated straight-line code, one kernel launch per conv layer.
 //
 // Replaces the TPU kernel fused_mac_pallas
@@ -9,22 +9,43 @@
 // channel order from a +0 accumulator, plus the optional ReLU epilogue
 // acc & ~acc[SIGN_OFF] once the reduction is complete.
 //
-// The netlist body of each (format, chain depth, extended, rounding) is
-// emitted by repro_torch/core/fused_backend/emitter.py as a struct with
-// a static run(x, y, acc): every register-file slot is a local
-// uint32_t, every gate one C expression (3-input LUT3 cells as
-// sum-of-minterms expressions that ptxas folds into one LOP3 each), and
-// the accumulator a local array indexed by constants, so the whole
-// chain step lives in registers.
+// Bodies are emitted by repro_torch/core/fused_backend/emitter.py as
+// structs with a static run(...): every register-file slot a local
+// uint32_t, every gate one HF_LOP3 (one lop3.b32 with the gate's truth
+// table), the accumulator a local array indexed by constants, so a chain
+// step lives in registers.
 //
-// What bounds it on the H100: 32-bit logic issue (gates x rows x lane
-// words x C / k), far above the bytes it moves.  The design keeps the
-// chain step in registers with no decode or slot traffic, stages a C
-// tile of weights and IFM masks in shared memory once per block (rows
-// padded to an odd pitch so a warp's reads are conflict-free), and
-// leaves the chain depth k to fused_chain_k.  No depth up to hobflops16
-// k=4 spills on sm_90a; the depth is chosen from measured time over
-// depth and body size (see PERF.md).
+// What bounds it on the H100: each (row, lane word) accumulator folds
+// its C channels in order, so a batch-1 layer has only P x Mw chains
+// (3136 at 14x14x512: 98 warps) and each chain is one warp's serial
+// run of LOP3s.  One warp issues a LOP3 every 2 cycles (16 lanes of
+// logic a scheduler) and waits 4.2 cycles on a dependent one
+// (scripts/torch_fused_probe.py), so a step costs at least its LOP3s x 2
+// cycles on the warp's scheduler, well above the accumulator path's
+// depth x 4.2 cycles.  The design takes everything else off that
+// scheduler:
+//
+// * Warp specialisation.  A block holds ceil(tp * tw / 32) chain warps
+//   (one thread a (row, lane word) chain) and pw times as many producer
+//   warps (one producer warp stages too slowly to keep a chain warp fed:
+//   its 4-byte cp.asyncs wait on memory).
+//   The chain warps never wait on a global load or on __syncthreads:
+//   they wait on "full" mbarriers of a ring of C tiles and release
+//   them on "empty" ones.
+// * Asynchronous staging.  Producer threads copy each C tile's weight
+//   and IFM mask words with cp.async (zero-filled past C, P and Mw, the
+//   MAC identity) into a ring slot, transposed to one odd-pitch row a
+//   lane word / IFM row so every warp read is conflict-free; the index
+//   walk is hoisted (no runtime division per element).
+// * Multiply ahead (AHEAD).  The product of channel c does not depend
+//   on the accumulator: producer threads run the multiplier netlist on
+//   the staged tile into product planes, a second ring (producer group
+//   g of pw takes channels g, g + pw, ...), and the chain
+//   warps run the add-only chain (repro_torch/core/fused_backend/
+//   netlists.py, bit-exact to the MAC chain).  Without AHEAD the chain
+//   warps run the whole MAC chain on the staged words.
+// * One chain warp a block by default (_build.launch_blocks), so a
+//   batch-1 layer spreads over 98 SMs instead of 49.
 
 #pragma once
 #include <cstdint>
@@ -32,118 +53,313 @@
 
 #define HF_INLINE __device__ __forceinline__
 
+template <int IMM>
+HF_INLINE uint32_t hf_lop3(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, %4;"
+      : "=r"(d)
+      : "r"(a), "r"(b), "r"(c), "n"(IMM));
+  return d;
+}
+#define HF_LOP3(a, b, c, imm) hf_lop3<(imm)>((a), (b), (c))
+
+namespace hf {
+
+constexpr int STAGES = 3;          // ring slots of C tiles
+
+HF_INLINE uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+HF_INLINE void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+HF_INLINE void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Arrive once this thread's earlier cp.asyncs have landed.
+HF_INLINE void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+HF_INLINE void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+HF_INLINE void cp_async4(uint32_t* dst, const int32_t* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+HF_INLINE void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+HF_INLINE void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Barrier 1 over the producer threads alone.
+HF_INLINE void producer_sync(int nthreads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(nthreads) : "memory");
+}
+
+// Copy C tile t (channels t*ct ...) into a raw slot: row tx < tw holds
+// lane word w0 + tx of channels' weight planes, row tw + ty the masks of
+// IFM row p0 + ty, column c*NIN + b; zero past C, P and Mw.  Thread i of
+// n walks the elements i, i + n, ... with its (row, column) advanced by
+// precomputed steps.
+template <int NIN>
+HF_INLINE void stage_tile(uint32_t* raw, const int32_t* __restrict__ i_masks,
+                          const int32_t* __restrict__ w_planes, int t,
+                          int ct, int pitch, int P, int C, int Mw, int p0,
+                          int w0, int tp, int tw, int i, int n) {
+  const int W = ct * NIN, c0n = t * ct * NIN, Cn = C * NIN;
+  {  // weights: element e -> (column e / tw, row e % tw)
+    int r = i / tw, q = i % tw;
+    const int dr = n / tw, dq = n % tw;
+    for (; r < W; r += dr, q += dq) {
+      if (q >= tw) { q -= tw; ++r; if (r >= W) break; }
+      const bool ok = c0n + r < Cn && w0 + q < Mw;
+      cp_async4(raw + q * pitch + r,
+                ok ? w_planes + (size_t)(c0n + r) * Mw + w0 + q : w_planes,
+                ok);
+    }
+  }
+  {  // masks: element e -> (row e / W, column e % W)
+    int q = i / W, r = i % W;
+    const int dq = n / W, dr = n % W;
+    for (; q < tp; q += dq, r += dr) {
+      if (r >= W) { r -= W; ++q; if (q >= tp) break; }
+      const bool ok = p0 + q < P && c0n + r < Cn;
+      cp_async4(raw + (tw + q) * pitch + r,
+                ok ? i_masks + (size_t)(p0 + q) * Cn + c0n + r : i_masks, ok);
+    }
+  }
+}
+
+}  // namespace hf
+
+// Chain is the body the chain warps run: the add-only chain over
+// products (AHEAD) or the MAC chain over staged words.  Mul is the
+// multiplier the producers run ahead (unused without AHEAD).
 // PROBE instantiations (built only by scripts/torch_fused_probe.py)
-// stamp clock64() around each C tile's staging and chain body and write,
-// per warp, [staging cycles, body cycles, tiles, channels] to probe.
-template <class Body, bool RELU, bool PROBE>
+// stamp clock64() in lane 0 of every warp and write 4 words a warp:
+// chain warps [full-barrier wait, chain body, 0, tiles], producer warps
+// [ring waits, multiplies, staging issue, tiles].
+template <class Chain, class Mul, bool AHEAD, bool RELU, bool PROBE>
 __global__ void fused_mac_kernel(const int32_t* __restrict__ i_masks,
                                  const int32_t* __restrict__ w_planes,
                                  int32_t* __restrict__ out, int P, int C,
-                                 int Mw, int ct,
+                                 int Mw, int tp, int tw, int ct, int pw,
                                  unsigned long long* __restrict__ probe) {
-  constexpr int NIN = Body::NIN, NOUT = Body::NOUT, K = Body::K;
-  extern __shared__ uint32_t smem[];
-  const int tw = blockDim.x, tp = blockDim.y;
-  const int nthr = tw * tp;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * tw + tx;
+  constexpr int NIN = AHEAD ? Mul::NIN : Chain::NIN;
+  constexpr int NOUT = Chain::NOUT, K = Chain::K, S = hf::STAGES;
+  extern __shared__ uint64_t smem64[];
+  const int nl = (tp * tw + 31) / 32 * 32;   // chain threads
+  const int np = pw * nl;                    // producer threads
+  const int pitch = ct * NIN + 1;            // raw row: odd pitch
+  const int ppitch = ct * NOUT + 1;          // product row: odd pitch
+  const int raw_words = (tw + tp) * pitch;
+  uint64_t* full = smem64;
+  uint64_t* empty = full + S;
+  uint32_t* raw = reinterpret_cast<uint32_t*>(empty + S);
+  uint32_t* prod = raw + (AHEAD ? 2 : S) * raw_words;   // AHEAD only
+  const int tid = threadIdx.x;
   const int w0 = blockIdx.x * tw, p0 = blockIdx.y * tp;
-  const int pitch = ct * NIN + 1;
-  uint32_t* wsm = smem;                      // [tw][pitch]
-  uint32_t* ism = wsm + tw * pitch;          // [tp][pitch]
+  const int T = (C + ct - 1) / ct;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      hf::mbar_init(&full[s], np);
+      hf::mbar_init(&empty[s], nl);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  unsigned long long pa = 0, pb = 0, pc = 0;
 
-  uint32_t acc[NOUT];
+  if (tid < nl) {
+    // ---- chain warps: fold the C channels in order -------------------
+    const int lane = tid < tp * tw ? tid : 0;
+    const int ty = lane / tw, tx = lane % tw;
+    uint32_t acc[NOUT];
 #pragma unroll
-  for (int b = 0; b < NOUT; ++b) acc[b] = 0u;  // +0
-
-  unsigned long long stage_cyc = 0, body_cyc = 0, tiles = 0;
-  for (int c0 = 0; c0 < C; c0 += ct) {
-    long long t0 = 0, t1 = 0;
-    if (PROBE) t0 = clock64();
-    __syncthreads();
-    for (int idx = tid; idx < ct * NIN * tw; idx += nthr) {
-      const int t = idx % tw, cb = idx / tw;
-      const int c = c0 + cb / NIN, w = w0 + t;
-      wsm[t * pitch + cb] = (c < C && w < Mw)
-          ? (uint32_t)w_planes[((size_t)c * NIN + cb % NIN) * Mw + w] : 0u;
-    }
-    for (int idx = tid; idx < tp * ct * NIN; idx += nthr) {
-      const int r = idx / (ct * NIN), cb = idx % (ct * NIN);
-      const int p = p0 + r, c = c0 + cb / NIN;
-      ism[r * pitch + cb] = (p < P && c < C)
-          ? (uint32_t)i_masks[((size_t)p * C + c) * NIN + cb % NIN] : 0u;
-    }
-    __syncthreads();
-    if (PROBE) t1 = clock64();
-    const int cend = min(ct, C - c0);
-    const uint32_t* xw = wsm + tx * pitch;
-    const uint32_t* yi = ism + ty * pitch;
+    for (int b = 0; b < NOUT; ++b) acc[b] = 0u;  // +0
+    for (int t = 0; t < T; ++t) {
+      const int s = t % S;
+      long long t0 = 0, t1 = 0;
+      if (PROBE) t0 = clock64();
+      hf::mbar_wait(&full[s], (t / S) & 1);
+      if (PROBE) t1 = clock64();
+      const int cend = min(ct, C - t * ct);
+      if constexpr (AHEAD) {
+        const uint32_t* pp = prod + (s * nl + tid) * ppitch;
 #pragma unroll 1
-    for (int cc = 0; cc < cend; cc += K)
-      Body::run(xw + cc * NIN, yi + cc * NIN, acc);
-    if (PROBE) {
-      stage_cyc += t1 - t0;
-      body_cyc += clock64() - t1;
-      ++tiles;
+        for (int cc = 0; cc < cend; cc += K)
+          Chain::run(pp + cc * NOUT, acc);
+      } else {
+        const uint32_t* xw = raw + s * raw_words + tx * pitch;
+        const uint32_t* yi = raw + s * raw_words + (tw + ty) * pitch;
+#pragma unroll 1
+        for (int cc = 0; cc < cend; cc += K)
+          Mul::run(xw + cc * NIN, yi + cc * NIN, acc);
+      }
+      hf::mbar_arrive(&empty[s]);
+      if (PROBE) {
+        pa += t1 - t0;
+        pb += clock64() - t1;
+      }
+    }
+    if (RELU) {
+      const uint32_t sg = acc[Chain::SIGN_OFF];
+#pragma unroll
+      for (int b = 0; b < NOUT; ++b) acc[b] &= ~sg;
+    }
+    const int p = p0 + ty, w = w0 + tx;
+    if (tid < tp * tw && p < P && w < Mw) {
+#pragma unroll
+      for (int b = 0; b < NOUT; ++b)
+        out[((size_t)b * P + p) * Mw + w] = (int32_t)acc[b];
+    }
+  } else {
+    // ---- producer warps: stage C tiles (and multiply ahead) ----------
+    const int i = tid - nl;
+    if constexpr (!AHEAD) {
+      for (int t = 0; t < T; ++t) {
+        const int s = t % S;
+        long long t0 = 0, t1 = 0;
+        if (PROBE) t0 = clock64();
+        hf::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+        if (PROBE) t1 = clock64();
+        hf::stage_tile<NIN>(raw + s * raw_words, i_masks, w_planes, t, ct,
+                            pitch, P, C, Mw, p0, w0, tp, tw, i, np);
+        hf::mbar_arrive_cp_async(&full[s]);
+        if (PROBE) {
+          pa += t1 - t0;
+          pc += clock64() - t1;
+        }
+      }
+    } else {
+      const int g = i / nl, li = i % nl;      // channel group, lane
+      const int lane = li < tp * tw ? li : 0;
+      const int ty = lane / tw, tx = lane % tw;
+      hf::stage_tile<NIN>(raw, i_masks, w_planes, 0, ct, pitch, P, C, Mw,
+                          p0, w0, tp, tw, i, np);
+      hf::cp_async_commit();
+      for (int t = 0; t < T; ++t) {
+        const int s = t % S;
+        uint32_t* rs = raw + (t & 1) * raw_words;
+        long long t0 = 0, t1 = 0, t2 = 0;
+        if (PROBE) t0 = clock64();
+        if (t + 1 < T)
+          hf::stage_tile<NIN>(raw + ((t + 1) & 1) * raw_words, i_masks,
+                              w_planes, t + 1, ct, pitch, P, C, Mw, p0, w0,
+                              tp, tw, i, np);
+        hf::cp_async_commit();
+        if (PROBE) t1 = clock64();
+        hf::cp_async_wait<1>();     // tile t landed (this thread's part)
+        hf::producer_sync(np);      // ... and every producer's
+        hf::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+        if (PROBE) t2 = clock64();
+        // Products of every channel the chain reads: up to the tile's
+        // end rounded up to the chain depth (zero words past C).
+        const int cend = min(ct, (C - t * ct + K - 1) / K * K);
+        const uint32_t* xw = rs + tx * pitch;
+        const uint32_t* yi = rs + (tw + ty) * pitch;
+        uint32_t* pp = prod + (s * nl + li) * ppitch;
+#pragma unroll 1
+        for (int c = g; c < cend; c += pw)
+          Mul::run(xw + c * NIN, yi + c * NIN, pp + c * NOUT);
+        hf::mbar_arrive(&full[s]);
+        hf::producer_sync(np);      // every producer is done with rs
+        if (PROBE) {
+          pa += t2 - t1;
+          pb += clock64() - t2;
+          pc += t1 - t0;
+        }
+      }
     }
   }
   if (PROBE && (tid & 31) == 0) {
-    const size_t wi = ((size_t)(blockIdx.y * gridDim.x + blockIdx.x) *
-                           ((nthr + 31) / 32) + tid / 32) * 4;
-    probe[wi] = stage_cyc;
-    probe[wi + 1] = body_cyc;
-    probe[wi + 2] = tiles;
-    probe[wi + 3] = (unsigned long long)C;
-  }
-  if (RELU) {
-    const uint32_t s = acc[Body::SIGN_OFF];
-#pragma unroll
-    for (int b = 0; b < NOUT; ++b) acc[b] &= ~s;
-  }
-  const int p = p0 + ty, w = w0 + tx;
-  if (p < P && w < Mw) {
-#pragma unroll
-    for (int b = 0; b < NOUT; ++b)
-      out[((size_t)b * P + p) * Mw + w] = (int32_t)acc[b];
+    const int nw = (nl + np) / 32;
+    const size_t wi =
+        ((size_t)(blockIdx.y * gridDim.x + blockIdx.x) * nw + tid / 32) * 4;
+    probe[wi] = pa;
+    probe[wi + 1] = pb;
+    probe[wi + 2] = pc;
+    probe[wi + 3] = (unsigned long long)T;
   }
 }
 
-template <class Body>
-size_t fused_mac_smem_bytes(int tp, int tw, int ct) {
-  return sizeof(uint32_t) * (size_t)(tw + tp) * (ct * Body::NIN + 1);
+// Dynamic shared memory of one block (mirrored by
+// repro_torch/core/fused_backend/kernel.py::smem_bytes).
+inline size_t fused_mac_smem_bytes(int nin, int nout, bool ahead, int tp,
+                                   int tw, int ct) {
+  const size_t nl = (size_t)(tp * tw + 31) / 32 * 32;
+  const size_t raw = (size_t)(tw + tp) * (ct * nin + 1);
+  const size_t words = ahead ? 2 * raw + hf::STAGES * nl * (ct * nout + 1)
+                             : hf::STAGES * raw;
+  return 16 * hf::STAGES + 4 * words;
 }
 
-template <class Body, bool RELU, bool PROBE>
+template <class Chain, class Mul, bool AHEAD, bool RELU, bool PROBE>
 int fused_mac_launch_t(const int32_t* i_masks, const int32_t* w_planes,
                        int32_t* out, int P, int C, int Mw, int tp, int tw,
-                       int ct, void* stream, unsigned long long* probe) {
-  const size_t smem = fused_mac_smem_bytes<Body>(tp, tw, ct);
+                       int ct, int pw, void* stream,
+                       unsigned long long* probe) {
+  constexpr int NIN = AHEAD ? Mul::NIN : Chain::NIN;
+  const size_t smem =
+      fused_mac_smem_bytes(NIN, Chain::NOUT, AHEAD, tp, tw, ct);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mac_kernel<Body, RELU, PROBE>,
+      fused_mac_kernel<Chain, Mul, AHEAD, RELU, PROBE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(tw, tp);
+  const int threads = (1 + pw) * ((tp * tw + 31) / 32 * 32);
   const dim3 grid((Mw + tw - 1) / tw, (P + tp - 1) / tp);
-  fused_mac_kernel<Body, RELU, PROBE>
-      <<<grid, block, smem, (cudaStream_t)stream>>>(i_masks, w_planes, out,
-                                                    P, C, Mw, ct, probe);
+  fused_mac_kernel<Chain, Mul, AHEAD, RELU, PROBE>
+      <<<grid, threads, smem, (cudaStream_t)stream>>>(
+          i_masks, w_planes, out, P, C, Mw, tp, tw, ct, pw, probe);
   return (int)cudaGetLastError();
 }
 
-// One C entry per (generated body, epilogue) variant.
-#define HF_DEFINE_FUSED_LAUNCH(NAME, BODY, RELU)                             \
+// One C entry per (generated bodies, epilogue) variant.  CHAIN is the
+// body the chain warps run, MUL the multiplier run ahead (AHEAD true),
+// or CHAIN again (AHEAD false).
+#define HF_DEFINE_FUSED_LAUNCH(NAME, CHAIN, MUL, AHEAD, RELU)                 \
   extern "C" int NAME(const int32_t* i_masks, const int32_t* w_planes,      \
                       int32_t* out, int P, int C, int Mw, int tp, int tw,   \
-                      int ct, void* stream) {                               \
-    return fused_mac_launch_t<BODY, RELU, false>(                         \
-        i_masks, w_planes, out, P, C, Mw, tp, tw, ct, stream, nullptr);     \
+                      int ct, int pw, void* stream) {                       \
+    return fused_mac_launch_t<CHAIN, MUL, AHEAD, RELU, false>(              \
+        i_masks, w_planes, out, P, C, Mw, tp, tw, ct, pw, stream, nullptr); \
   }
 
 // The measurement-only entry of a variant: probe holds 4 words a warp.
-#define HF_DEFINE_FUSED_PROBE(NAME, BODY, RELU)                              \
+#define HF_DEFINE_FUSED_PROBE(NAME, CHAIN, MUL, AHEAD, RELU)                  \
   extern "C" int NAME(const int32_t* i_masks, const int32_t* w_planes,      \
                       int32_t* out, int P, int C, int Mw, int tp, int tw,   \
-                      int ct, void* stream, unsigned long long* probe) {    \
-    return fused_mac_launch_t<BODY, RELU, true>(                          \
-        i_masks, w_planes, out, P, C, Mw, tp, tw, ct, stream, probe);       \
+                      int ct, int pw, void* stream,                         \
+                      unsigned long long* probe) {                          \
+    return fused_mac_launch_t<CHAIN, MUL, AHEAD, RELU, true>(               \
+        i_masks, w_planes, out, P, C, Mw, tp, tw, ct, pw, stream, probe);   \
   }

@@ -303,13 +303,14 @@ def avgpool2d_activations(act: BitsliceActivation, window=2,
 
 def derive_blocks(P: int, K: int, M: int, *, p_block: int | None = None,
                   m_block: int | None = None, c_block: int | None = None,
-                  c_unroll: int | None = None) -> dict:
+                  c_unroll: int | None = None,
+                  kernel: str = "bitslice_mac") -> dict:
     """Launch parameters for a [P, K] @ [K, M] bitslice GEMM on Hopper:
-    :func:`repro_torch._build.launch_blocks` over the ``ceil(M / 32)``
-    lane words.  Outputs never depend on these."""
+    :func:`repro_torch._build.launch_blocks` for ``kernel`` over the
+    ``ceil(M / 32)`` lane words.  Outputs never depend on these."""
     return _build.launch_blocks(P, K, -(-M // LANE), p_block=p_block,
                                 m_block=m_block, c_block=c_block,
-                                c_unroll=c_unroll)
+                                c_unroll=c_unroll, kernel=kernel)
 
 
 def conv_core(act: BitsliceActivation, weights: ConvWeights, *,
@@ -334,7 +335,9 @@ def conv_core(act: BitsliceActivation, weights: ConvWeights, *,
     P, K, M = B * Ho * Wo, weights.kh * weights.kw * weights.cin, \
         weights.cout
     blk = derive_blocks(P, K, M, p_block=p_block, m_block=m_block,
-                        c_block=c_block, c_unroll=c_unroll)
+                        c_block=c_block, c_unroll=c_unroll,
+                        kernel="fused_mac" if backend == "cuda_fused"
+                        else "bitslice_mac")
     out = mac_planes(i_masks, weights.planes, fmt=weights.fmt,
                      backend=backend, extended=extended, rounding=rounding,
                      relu=relu, blocks=blk)

@@ -276,7 +276,24 @@ def test_launch_blocks_are_checked_before_launch():
             _build.check_blocks(p, m, 32, smem)
     need = interp.smem_bytes(165, 11, 12, 4, 16, 32)
     assert need == 4 * (20 * (32 * 11 + 1) + 177 * 64)
-    assert fused.smem_bytes(11, 4, 16, 32) == 4 * 20 * (32 * 11 + 1)
+    # The fused ring: 3 barrier pairs and 3 slots of staged words, or 2
+    # slots and 3 of product planes (64 chain lanes) multiplying ahead.
+    assert fused.smem_bytes(11, 12, 4, 16, 32, ahead=False) == \
+        48 + 4 * 3 * 20 * (32 * 11 + 1)
+    assert fused.smem_bytes(11, 12, 4, 16, 32, ahead=True) == \
+        48 + 4 * (2 * 20 * (32 * 11 + 1) + 3 * 64 * (32 * 12 + 1))
+    # One chain warp and FUSED_PRODUCERS producer warps a chain warp; a
+    # ring slot shrinks by chain steps until the block fits.
+    per = 1 + _build.FUSED_PRODUCERS
+    assert fused.block_threads(4, 16) == 64 * per
+    assert fused.block_threads(3, 7) == 32 * per
+    with pytest.raises(ValueError, match="blocks p="):
+        _build.check_blocks(9, 32, 8, 0, threads=fused.block_threads(9, 32))
+    assert fused.ring_slot(7, 3, 11, 12, 4, 16) == 9
+    slot = fused.ring_slot(64, 2, 11, 12, 2, 32)
+    assert slot % 2 == 0 and slot < 64
+    assert fused.smem_bytes(11, 12, 2, 32, slot) <= _build.MAX_SMEM < \
+        fused.smem_bytes(11, 12, 2, 32, slot + 2)
 
 
 # ---------------------------------------------------------------------------
