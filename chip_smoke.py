@@ -10,7 +10,9 @@ versions:
 1. prints the card's name and power limit, builds the three kernels
    with ``nvcc`` (one process per source, started together) and prints
    each kernel's registers, shared memory and spills from
-   ``-Xptxas -v``;
+   ``-Xptxas -v``, the MAC kernels' blocks at the main path's shapes,
+   and the dependent-LOP3 latency L from a ``clock64()``
+   microbenchmark;
 2. answers three requests (batch 1, 2, 4) through the linear stack
    (3x3 512->512 conv, two 1x1 512->512 convs, ReLU after each) with the
    default ``cuda_fused`` backend and again with ``cuda``: the two must
@@ -22,7 +24,10 @@ versions:
 4. compares each kernel with its plain version, bit-exact, on the 1x1
    512->512 layer and on the 3x3 layer at cin 64;
 5. times each kernel with CUDA events at the main path's shapes, and
-   the stack's steady requests;
+   the stack's steady requests; for the fused kernel also its time
+   before the redesign (PERF.md), its serial-chain bound (C steps x the
+   chain body's accumulator-path depth a step x L at the SM clock), the
+   share of the larger bound and the cycles a MAC step;
 6. traces requests of batch 1 and 4 with ``torch.profiler``: the
    device's busy share and device time and launches by kernel group;
 7. serves qwen2-0.5b (24 layers, d_model 896, vocab 151936; random
@@ -39,21 +44,27 @@ versions:
    projection shape of that model, at M = 512 (a prefill's rows) and
    M = 4 (a decode step's), on layer 0's weights packed in hobflops9:
    held against its plain version within the float32 summation bound,
-   and timed (median of 20 launches after 3 warm-ups) beside its bound,
-   the plain version and ``torch.matmul`` on the decoded weight;
+   and timed (median of 20 launches after 3 warm-ups) beside the FMA
+   tile of PR 12's kernel (the route it keeps for w_f > 10), its bound
+   (two TF32 products, the decode's integer operations, the bytes) and
+   the earlier f32-FMA bound, the plain version and ``torch.matmul`` on
+   the decoded weight;
 9. prints one JSON ``kernels`` line and, last, the ``ok`` line.
 
 Launch counts are zeroed just before steps 2-3, 7 and 8 and read just
 after each.  Any mismatch or failure exits non-zero.  Conv weights and
 images come from ``numpy.random.default_rng(--seed)``.
-``scripts/torch_fused_regfile.py`` imports the card query, the
-``-Xptxas -v`` parser and the timer from here.
+``scripts/torch_fused_regfile.py``, ``scripts/torch_fused_probe.py`` and
+``scripts/torch_dequant_tiles.py`` import the card query, the
+``-Xptxas -v`` parser, the timers and the LOP3 microbenchmark from
+here.
 
 Run from the repository root: ``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import re
 import statistics
@@ -69,6 +80,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+TF32_FLOPS_PER_S = 495e12      # H100 SXM data sheet, dense TF32
 INT32_LANES_PER_SM = 64        # 32-bit integer/logic results per clock per SM
 FP32_LANES_PER_SM = 128        # float32 FMA lanes per SM (2 flops each)
 HW, WIDTH = 14, 512            # MobileNets' 14x14x512 stage
@@ -77,6 +89,9 @@ TRACED_REQS = 10               # requests under the profiler, per batch
 LM_ARCH = "qwen2-0.5b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 128, 16
 DQ_MS = (LM_BATCH * LM_PROMPT, LM_BATCH)   # prefill rows, decode-step rows
+# fused_mac before its redesign, batch 1 (PERF.md: PR 11 run 7, H100 80GB
+# HBM3 at 700 W); printed beside this run's times.
+EARLIER_FUSED_MS = {"1x1": 0.428, "3x3": 4.529}
 
 
 def nvidia_smi(fields: str) -> str:
@@ -108,6 +123,94 @@ def ptxas_report(log: str) -> dict[str, dict]:
         if m:
             cur["smem"] = int(m.group(1))
     return out
+
+
+LOP3_N = 512
+MICRO = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+#define L3(x, y, z) asm volatile("lop3.b32 %0, %0, %1, %2, 0x96;" \
+                                 : "+r"(x) : "r"(y), "r"(z))
+__global__ void lop3_dep(uint32_t* out, long long* cyc, uint32_t a,
+                         uint32_t b) {
+  uint32_t x = threadIdx.x;
+  __syncwarp();
+  const long long t0 = clock64();
+#pragma unroll
+  for (int i = 0; i < %N%; ++i) L3(x, a, b);
+  const long long t1 = clock64();
+  out[threadIdx.x] = x;
+  if ((threadIdx.x & 31) == 0) cyc[threadIdx.x / 32] = t1 - t0;
+}
+__global__ void lop3_ilp8(uint32_t* out, long long* cyc, uint32_t a,
+                          uint32_t b) {
+  uint32_t x0 = threadIdx.x, x1 = x0 + 1, x2 = x0 + 2, x3 = x0 + 3,
+           x4 = x0 + 4, x5 = x0 + 5, x6 = x0 + 6, x7 = x0 + 7;
+  __syncwarp();
+  const long long t0 = clock64();
+#pragma unroll
+  for (int i = 0; i < %N%; ++i) {
+    L3(x0, a, b); L3(x1, a, b); L3(x2, a, b); L3(x3, a, b);
+    L3(x4, a, b); L3(x5, a, b); L3(x6, a, b); L3(x7, a, b);
+  }
+  const long long t1 = clock64();
+  out[threadIdx.x] = x0 ^ x1 ^ x2 ^ x3 ^ x4 ^ x5 ^ x6 ^ x7;
+  if ((threadIdx.x & 31) == 0) cyc[threadIdx.x / 32] = t1 - t0;
+}
+extern "C" int lop3_probe(uint32_t* out, long long* cyc, int ilp,
+                          int warps) {
+  if (ilp) lop3_ilp8<<<1, 32 * warps>>>(out, cyc, 0x1234u, 0x5678u);
+  else lop3_dep<<<1, 32 * warps>>>(out, cyc, 0x1234u, 0x5678u);
+  return (int)cudaGetLastError();
+}
+""".replace("%N%", str(LOP3_N))
+
+
+def lop3_readings(_build) -> dict:
+    """Cycles a ``lop3.b32`` a warp, by ``clock64()`` in one block: a
+    dependent chain (``dependent_<w>w``: the latency L) and 8 independent
+    chains (``ilp8_<w>w``: the issue interval), for w = 1, 4, 8 warps."""
+    lib = _build.build([("lop3_probe", MICRO)])[0].lib
+    fn = _build.bind(lib, "lop3_probe", [ctypes.c_void_p, ctypes.c_void_p,
+                                         ctypes.c_int, ctypes.c_int])
+    out = torch.empty(256, dtype=torch.int32, device="cuda")
+    cyc = torch.zeros(8, dtype=torch.int64, device="cuda")
+    res = {}
+    for ilp in (0, 1):
+        for warps in (1, 4, 8):
+            for _ in range(3):                      # warm, keep the last
+                _build.check(fn(_build.ptr(out), _build.ptr(cyc), ilp,
+                                warps), "lop3_probe")
+                torch.cuda.synchronize()
+            n = LOP3_N * (8 if ilp else 1)
+            per = cyc[:warps].double().mean().item() / n
+            res[f"{'ilp8' if ilp else 'dependent'}_{warps}w"] = per
+    return res
+
+
+def acc_depth(graph) -> int:
+    """Gate depth of the longest path from the ``acc`` input bus to the
+    ``out`` bus (inputs depth 0)."""
+    from repro_torch.core.circuit import OP_INPUT
+    depth = {}
+    for nid, n in enumerate(graph.nodes):
+        if n.op == OP_INPUT:
+            depth[nid] = 0 if n.aux[0] == "acc" else None
+            continue
+        kids = [c for c in (n.a, n.b, n.c) if c is not None and c >= 0]
+        ds = [depth.get(c) for c in kids]
+        ds = [d for d in ds if d is not None]
+        depth[nid] = max(ds) + 1 if ds else None
+    outs = [depth.get(w) for w in graph.outputs["out"]]
+    return max(d for d in outs if d is not None)
+
+
+
+def dq_decode_ops(nbits: int) -> int:
+    """Integer operations a weight of the dequant matmul's tensor-core
+    decoder (``csrc/dequant_matmul.cu``): a funnel shift and a LOP3 for
+    each code bit, then about 6 to bias, flush, select and store."""
+    return 2 * nbits + 6
 
 
 class SmokeFailure(RuntimeError):
@@ -286,10 +389,25 @@ def main() -> int:
     p, m, k = blk["p_block"], blk["m_block"], blk["c_unroll"]
     ct = _build.c_tile(blk["c_block"], k)
     prog = interp.mac_program(fmt, k, False, RNE)
-    smem = (fused.smem_bytes(fmt.nbits, p, m, ct),
-            interp.smem_bytes(prog.nslots, fmt.nbits, prog.nout, p, m, ct))
-    print(f"dynamic shared memory a block at the main path's blocks {blk}:"
-          f" fused_mac {smem[0]} B, bitslice_mac {smem[1]} B")
+    print(f"bitslice_mac at the main path's blocks {blk}: "
+          f"{p * m} threads, "
+          f"{interp.smem_bytes(prog.nslots, fmt.nbits, prog.nout, p, m, ct)}"
+          f" B dynamic shared memory")
+    fblk = _build.launch_blocks(hw * hw, c, c // 32, kernel="fused_mac")
+    fk = fused.fused_chain_k(fmt)
+    fp, fm = fblk["p_block"], fblk["m_block"]
+    fct = fused.ring_slot(fblk["c_block"], fk, fmt.nbits,
+                          fmt.mult_out().nbits, fp, fm)
+    print(f"fused_mac at the main path's blocks {fblk}: chain depth {fk}, "
+          f"{fused.block_threads(fp, fm)} threads ({fp * fm} chains), ring "
+          f"slot {fct} channels, "
+          f"{fused.smem_bytes(fmt.nbits, fmt.mult_out().nbits, fp, fm, fct)}"
+          f" B dynamic shared memory")
+    lop3 = lop3_readings(_build)
+    lop3_l = lop3["dependent_1w"]
+    print(f"dependent LOP3 latency L = {lop3_l:.2f} cycles; one warp issues "
+          f"a LOP3 every {lop3['ilp8_1w']:.2f} cycles "
+          f"({lop3['ilp8_8w']:.2f} with 8 warps in the block)")
 
     # -- 2./3. the main path, counted ----------------------------------
     requests = [rng.standard_normal((b, hw, hw, c)).astype(np.float32)
@@ -368,7 +486,7 @@ def main() -> int:
         return out, start.elapsed_time(end)
 
     # Both wrappers at their defaults, as the main path launches them.
-    k_fused = fused.fused_chain_k(fmt)
+    k_fused = fk
     kernels = {
         "bitslice_mac": dict(
             route="cuda", source="src/repro_torch/csrc/bitslice_mac.cu",
@@ -418,10 +536,14 @@ def main() -> int:
                 kd["plain_ms"] = plain_ms
 
     # Times at the main path's shapes (batch 1): 1x1 K=512 and 3x3
-    # K=4608, with the bound beside each.  The work of either kernel is
+    # K=4608, with the bounds beside each.  The work of either kernel is
     # counted as the fewest 3-input LOP3 cells per channel: the
-    # avx512-mapped 4-step chain's cells over 4.
+    # avx512-mapped 4-step chain's cells over 4.  The fused kernel's
+    # serial-chain bound: each (row, lane word) chain folds C channels in
+    # order, each step at least the accumulator path's gate depth of
+    # dependent LOP3s, L cycles each, at the SM clock read after timing.
     gates = fused.fused_chain_lowered(fmt, 4, False, RNE).gate_count()
+    step_depth = acc_depth(fused.chain_body(fmt, fk, False, RNE).graph) / fk
     rows = []
     conv_ops = {"1x1": pw_ops, "3x3": layer_operands(3, c)}
     for name, kd in kernels.items():
@@ -440,6 +562,30 @@ def main() -> int:
             print(f"{name} (chain depth {kd['k']}) {shape} P={P} C={C} "
                   f"Mw={Mw}: {ms:.3f} ms; bound {max(ops_ms, bytes_ms):.4f}"
                   f" ms ({ops:.3e} LOP3 ops, {nbytes / 1e6:.1f} MB)")
+    sm_mhz = float(nvidia_smi("clocks.sm").split()[0])
+    for name, kd in kernels.items():
+        extra = {}
+        if name == "fused_mac":
+            for shape in conv_ops:
+                d = kd[shape]
+                d["chain_bound_ms"] = d["C"] * step_depth * lop3_l / \
+                    (sm_mhz * 1e3)
+                d["cycles_a_mac"] = d["ms"] * sm_mhz * 1e3 / d["C"]
+                top = max(d["bound_ms"], d["chain_bound_ms"])
+                print(f"fused_mac {shape}: {d['ms']:.4f} ms (earlier "
+                      f"{EARLIER_FUSED_MS[shape]} ms, PERF.md); operations "
+                      f"bound {d['bound_ms']:.4f} ms, serial-chain bound "
+                      f"{d['chain_bound_ms']:.4f} ms ({d['C']} steps x "
+                      f"{step_depth:.1f} gates x L {lop3_l:.2f} at "
+                      f"{sm_mhz:.0f} MHz); share of the larger "
+                      f"{top / d['ms']:.3f}; {d['cycles_a_mac']:.0f} cycles "
+                      f"a MAC step")
+            extra = {"earlier_ms": EARLIER_FUSED_MS["1x1"],
+                     "earlier_ms_3x3": EARLIER_FUSED_MS["3x3"],
+                     "chain_bound_ms": kd["1x1"]["chain_bound_ms"],
+                     "chain_bound_ms_3x3": kd["3x3"]["chain_bound_ms"],
+                     "cycles_a_mac_3x3": kd["3x3"]["cycles_a_mac"],
+                     "lop3_latency_cycles": lop3_l, "sm_mhz": sm_mhz}
         rows.append({
             "name": name, "route": kd["route"], "source": kd["source"],
             "replaces": kd["replaces"], "launches": launches[name],
@@ -449,6 +595,7 @@ def main() -> int:
             "bound_by": kd["1x1"]["bound_by"], "library_ms": None,
             "shape": "1x1 512->512, 14x14, batch 1",
             "ms_3x3": kd["3x3"]["ms"], "bound_ms_3x3": kd["3x3"]["bound_ms"],
+            **extra,
         })
 
     # Steady-state request times (warm), cuda_fused.
@@ -641,6 +788,7 @@ def dequant_phase(seed: int, dev, params: dict, n_sm: int,
     counted run through the entry point, then each point against its
     plain version and timed.  Returns the kernel's JSON row."""
     from repro_torch.core.fpformat import StorageFormat
+    from repro_torch.kernels.dequant_matmul import kernel as dqk
     from repro_torch.kernels.dequant_matmul.ops import (dequant_matmul,
                                                         pack_weights)
     from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_ref
@@ -648,6 +796,7 @@ def dequant_phase(seed: int, dev, params: dict, n_sm: int,
 
     torch.backends.cuda.matmul.allow_tf32 = False
     fp32_peak = n_sm * FP32_LANES_PER_SM * 2 * clock_mhz * 1e6  # derived
+    int32_peak = n_sm * INT32_LANES_PER_SM * clock_mhz * 1e6    # derived
     sfmt = StorageFormat(5, 3)                                  # hobflops9
     b0 = params["blocks"]["b0"]
     shapes = {"wq/wo": b0["attn"]["wq"][0], "wk/wv": b0["attn"]["wk"][0],
@@ -687,24 +836,40 @@ def dequant_phase(seed: int, dev, params: dict, n_sm: int,
         ratio = float((diff / bound.clamp(min=1e-30)).max())
         max_ratio, max_err = max(max_ratio, ratio), max(max_err,
                                                         float(diff.max()))
+        # PR 12's kernel: the FMA route's tile for M, uncounted.
+        fma_out = torch.empty_like(got)
+        earlier_ms = median_device_ms(lambda: dqk.launch(
+            x, qt.data, qt.scale, fma_out, sfmt, dqk.tile_for(M)))
         ms = median_device_ms(lambda: dequant_matmul(x, qt))
         plain_ms = median_device_ms(
             lambda: dequant_matmul_ref(x, qt.data, qt.scale, sfmt, N))
         lib_ms = median_device_ms(lambda: torch.matmul(x, w))
         nbytes = 4 * (x.numel() + qt.data.numel() + M * N)
-        ops_ms = 2 * M * K * N / fp32_peak * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        pt = dict(shape=name, M=M, K=K, N=N, ms=ms, plain_ms=plain_ms,
-                  library_ms=lib_ms, bound_ms=max(ops_ms, bytes_ms),
+        # The tensor-core route's work: two TF32 products (x_hi, x_lo)
+        # and the decode, once per weight and row tile of n_width rows.
+        plan = dqk.plan(M, K, sfmt)
+        row_tiles = -(-M // plan["n_width"])
+        tf32_ms = 2 * 2 * M * K * N / TF32_FLOPS_PER_S * 1e3
+        decode_ms = K * N * row_tiles * dq_decode_ops(sfmt.nbits) / \
+            int32_peak * 1e3
+        ops_ms = max(tf32_ms, decode_ms)
+        old_bound = max(2 * M * K * N / fp32_peak * 1e3, bytes_ms)
+        pt = dict(shape=name, M=M, K=K, N=N, ms=ms, earlier_ms=earlier_ms,
+                  plain_ms=plain_ms, library_ms=lib_ms,
+                  bound_ms=max(ops_ms, bytes_ms),
                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                  max_bound_ratio=ratio)
+                  tf32_ms=tf32_ms, decode_ms=decode_ms, bytes_ms=bytes_ms,
+                  old_bound_ms=old_bound, plan=plan, max_bound_ratio=ratio)
         points.append(pt)
-        print(f"dequant_matmul {name} M={M} K={K} N={N}: {ms:.4f} ms; "
-              f"bound {pt['bound_ms']:.4f} ms ({pt['bound_by']}; "
-              f"{2 * M * K * N:.3e} flop, {nbytes / 1e6:.2f} MB), share "
-              f"{pt['bound_ms'] / ms:.3f}; plain {plain_ms:.4f} ms; "
-              f"torch.matmul on the decoded weight {lib_ms:.4f} ms; max "
-              f"|err| / bound {ratio:.4f}")
+        print(f"dequant_matmul {name} M={M} K={K} N={N} {plan}: {ms:.4f} ms "
+              f"(earlier, FMA tile {earlier_ms:.4f} ms); bound "
+              f"{pt['bound_ms']:.4f} ms ({pt['bound_by']}: TF32 "
+              f"{tf32_ms:.4f}, decode {decode_ms:.4f}, bytes "
+              f"{bytes_ms:.4f}), share {pt['bound_ms'] / ms:.3f}; old bound "
+              f"{old_bound:.4f} ms (f32 FMA), share {old_bound / ms:.3f}; "
+              f"plain {plain_ms:.4f} ms; torch.matmul on the decoded weight "
+              f"{lib_ms:.4f} ms; max |err| / bound {ratio:.4f}")
     print(f"dequant_matmul vs plain version: within the float32 summation "
           f"bound at all {len(points)} points, largest ratio "
           f"{max_ratio:.4f}, max abs err {max_err:.3e}")
@@ -716,6 +881,8 @@ def dequant_phase(seed: int, dev, params: dict, n_sm: int,
         "replaces": "src/repro/kernels/dequant_matmul/kernel.py:64",
         "launches": launches["dequant_matmul"], "max_abs_err": max_err,
         "ms": sum(p["ms"] for p in points),
+        "earlier_ms": sum(p["earlier_ms"] for p in points),
+        "old_bound_ms": sum(p["old_bound_ms"] for p in points),
         "plain_ms": sum(p["plain_ms"] for p in points),
         "bound_ms": sum(p["bound_ms"] for p in points),
         "bound_by": max(by, key=by.get),

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time of the dequant matmul's two tile configurations per row count,
-on one card.
+"""Time of the dequant matmul's two FMA tile configurations per row
+count, on one card.
 
-Builds ``src/repro_torch/csrc/dequant_matmul.cu`` and times both of its
-tile configurations — the 64x64 output tile and the 8x32 tile — at
+Builds ``src/repro_torch/csrc/dequant_matmul.cu`` and times both tile
+configurations of its FMA route (PR 12's kernel, kept for formats with
+more than 10 fraction bits) — the 64x64 output tile and the 8x32 tile —
+at
 qwen2-0.5b's four quantized projection shapes (K, N) = (896, 896),
 (896, 128), (896, 4864) and (4864, 896), hobflops9 planes, for row
 counts from a decode step's few rows to a prefill's 512.  Each point is

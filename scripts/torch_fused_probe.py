@@ -7,7 +7,8 @@ Three readings for the port's fused MAC kernel
 1. **LOP3 latency and issue rate.** A one-block microbenchmark times,
    with ``clock64()``, a chain of 512 dependent ``lop3.b32`` (the
    dependent-LOP3 latency L) and 8 independent chains of 512 (one warp's
-   issue interval), for 1, 4 and 8 warps a block.
+   issue interval), for 1, 4 and 8 warps a block (``chip_smoke``'s
+   ``lop3_readings``, which prints L too).
 2. **The body's SASS.** ``cuobjdump -sass`` of the built kernel: the
    instructions of each fused kernel by opcode, against the gate count
    of its emitted body (does each LUT3 become one ``LOP3``?).
@@ -46,67 +47,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import nvidia_smi, time_cuda  # noqa: E402
-
-LOP3_N = 512
-MICRO = r"""
-#include <cstdint>
-#include <cuda_runtime.h>
-#define L3(x, y, z) asm volatile("lop3.b32 %0, %0, %1, %2, 0x96;" \
-                                 : "+r"(x) : "r"(y), "r"(z))
-__global__ void lop3_dep(uint32_t* out, long long* cyc, uint32_t a,
-                         uint32_t b) {
-  uint32_t x = threadIdx.x;
-  __syncwarp();
-  const long long t0 = clock64();
-#pragma unroll
-  for (int i = 0; i < %N%; ++i) L3(x, a, b);
-  const long long t1 = clock64();
-  out[threadIdx.x] = x;
-  if ((threadIdx.x & 31) == 0) cyc[threadIdx.x / 32] = t1 - t0;
-}
-__global__ void lop3_ilp8(uint32_t* out, long long* cyc, uint32_t a,
-                          uint32_t b) {
-  uint32_t x0 = threadIdx.x, x1 = x0 + 1, x2 = x0 + 2, x3 = x0 + 3,
-           x4 = x0 + 4, x5 = x0 + 5, x6 = x0 + 6, x7 = x0 + 7;
-  __syncwarp();
-  const long long t0 = clock64();
-#pragma unroll
-  for (int i = 0; i < %N%; ++i) {
-    L3(x0, a, b); L3(x1, a, b); L3(x2, a, b); L3(x3, a, b);
-    L3(x4, a, b); L3(x5, a, b); L3(x6, a, b); L3(x7, a, b);
-  }
-  const long long t1 = clock64();
-  out[threadIdx.x] = x0 ^ x1 ^ x2 ^ x3 ^ x4 ^ x5 ^ x6 ^ x7;
-  if ((threadIdx.x & 31) == 0) cyc[threadIdx.x / 32] = t1 - t0;
-}
-extern "C" int lop3_probe(uint32_t* out, long long* cyc, int ilp,
-                          int warps) {
-  if (ilp) lop3_ilp8<<<1, 32 * warps>>>(out, cyc, 0x1234u, 0x5678u);
-  else lop3_dep<<<1, 32 * warps>>>(out, cyc, 0x1234u, 0x5678u);
-  return (int)cudaGetLastError();
-}
-""".replace("%N%", str(LOP3_N))
-
-
-def lop3_readings(_build) -> dict:
-    lib = _build.build([("lop3_probe", MICRO)])[0].lib
-    fn = _build.bind(lib, "lop3_probe", [ctypes.c_void_p, ctypes.c_void_p,
-                                         ctypes.c_int, ctypes.c_int])
-    out = torch.empty(256, dtype=torch.int32, device="cuda")
-    cyc = torch.zeros(8, dtype=torch.int64, device="cuda")
-    res = {}
-    for ilp in (0, 1):
-        for warps in (1, 4, 8):
-            for _ in range(3):                      # warm, keep the last
-                _build.check(fn(_build.ptr(out), _build.ptr(cyc), ilp,
-                                warps), "lop3_probe")
-                torch.cuda.synchronize()
-            n = LOP3_N * (8 if ilp else 1)
-            per = cyc[:warps].double().mean().item() / n
-            res[f"{'ilp8' if ilp else 'dependent'}_{warps}w"] = per
-    return res
-
+from chip_smoke import (acc_depth, lop3_readings, nvidia_smi,  # noqa: E402
+                        time_cuda)
 
 def sass_census(so: Path) -> dict[str, Counter]:
     """``{kernel name: Counter(opcode)}`` from ``cuobjdump -sass``."""
@@ -124,23 +66,6 @@ def sass_census(so: Path) -> dict[str, Counter]:
         if m and cur is not None:
             cur[m.group(1)] += 1
     return out
-
-
-def acc_depth(graph) -> int:
-    """Gate depth of the longest path from the ``acc`` input bus to the
-    ``out`` bus (inputs depth 0)."""
-    from repro_torch.core.circuit import OP_INPUT
-    depth = {}
-    for nid, n in enumerate(graph.nodes):
-        if n.op == OP_INPUT:
-            depth[nid] = 0 if n.aux[0] == "acc" else None
-            continue
-        kids = [c for c in (n.a, n.b, n.c) if c is not None and c >= 0]
-        ds = [depth.get(c) for c in kids]
-        ds = [d for d in ds if d is not None]
-        depth[nid] = max(ds) + 1 if ds else None
-    outs = [depth.get(w) for w in graph.outputs["out"]]
-    return max(d for d in outs if d is not None)
 
 
 def main() -> int:

@@ -3,17 +3,22 @@
 on one card.
 
 Builds the fused kernel (``src/repro_torch/csrc/fused_mac.cuh`` with the
-emitted chain bodies) for several formats at chain depths 1-4, one
-``nvcc`` per format started together, and prints for each variant the
-schedule's peak live slots, the gate count, and what ``-Xptxas -v``
-reports: registers per thread and spill bytes.  Then it times every
-variant with CUDA events on both conv layers of the MobileNets 14x14x512
-stage at batch 1 — the 3x3 512->512 layer (P=196, C=4608, Mw=16) and the
-1x1 512->512 layer (C=512) — in rounds over the depths (median and range
-of the rounds), and weighs them as a request of the stack does: one 3x3
-and two 1x1 launches.  It checks that every depth of a format gives the
-same planes.  ``fused_chain_k``'s depth policy is chosen from this
-table.
+emitted bodies: the add-only chain the chain warps run and the
+multiplier the producer warps run ahead) for several formats at chain
+depths 1-4, one ``nvcc`` per format started together, and prints for
+each variant the chain body's peak live slots and gate count and what
+``-Xptxas -v`` reports for the kernel: registers per thread and spill
+bytes.  Then it times every variant with CUDA events on both conv layers
+of the MobileNets 14x14x512 stage at batch 1 — the 3x3 512->512 layer
+(P=196, C=4608, Mw=16) and the 1x1 512->512 layer (C=512) — in rounds
+over the depths (median and range of the rounds), and weighs them as a
+request of the stack does: one 3x3 and two 1x1 launches.  It checks
+that every depth of a format gives the same planes.  ``fused_chain_k``'s
+depth policy is chosen from this table.  Last, for hobflops9 at the
+policy's depth, it times the 3x3 layer at batch 1 and 4 (P=196, 784)
+over the producer warps a chain warp (``_build.FUSED_PRODUCERS``) and
+the ring slot's channels (``c_block``), the launch defaults of
+``_build.launch_blocks``.
 
 Run from the repository root on a machine with a card:
 ``python3 scripts/torch_fused_regfile.py``.
@@ -97,8 +102,8 @@ def main() -> int:
                     ms.setdefault((layer, k), []).append(
                         time_cuda(fn, REPS))
         for _, k, *_ in vs:
-            lowered = fused.fused_chain_lowered(fmt, k, False, RNE)
-            tag = "Body_" + fused.variant_tag(fmt, k, False, RNE, False)
+            lowered = fused.chain_body(fmt, k, False, RNE)
+            tag = "Add_" + fused.variant_tag(fmt, k, False, RNE, False)
             rep = next(r for ent, r in regs.items() if tag in ent)
             row = {"format": name, "k": k, "live_slots": lowered.nslots,
                    "gates": lowered.gate_count(), **rep}
@@ -121,10 +126,35 @@ def main() -> int:
                    key=lambda r: r["request_ms"])
         print(f"{name:11s} fastest request at k={best['k']}; "
               f"fused_chain_k picks k={policy(fmt)}")
+    fused.fused_chain_k = policy
+    fmt = FPFormat(*FORMATS["hobflops9"])
+    launch_rows = []
+    for p in (196, 784):
+        i_masks = torch.as_tensor(
+            -rng.integers(0, 2, (p, 4608, fmt.nbits)).astype(np.int32),
+            device="cuda")
+        w_planes = torch.as_tensor(
+            rng.integers(-2**31, 2**31, (4608, fmt.nbits, MW),
+                         dtype=np.int64).astype(np.int32), device="cuda")
+        ms = {}
+        for _ in range(ROUNDS):
+            for pw in (2, 3, 4):
+                for cb in (8, 16):
+                    _build.FUSED_PRODUCERS = pw
+                    ms.setdefault((pw, cb), []).append(time_cuda(
+                        lambda: fused.fused_mac_cuda(
+                            i_masks, w_planes, fmt=fmt, c_block=cb), REPS))
+        for (pw, cb), t in sorted(ms.items()):
+            t = sorted(t)
+            launch_rows.append({"P": p, "producers": pw, "c_block": cb,
+                                "median": t[len(t) // 2], "min": t[0],
+                                "max": t[-1]})
+            print(f"hobflops9 3x3 P={p} producers {pw} c_block {cb:2d}: "
+                  f"{t[len(t) // 2]:.4f} ms [{t[0]:.4f}, {t[-1]:.4f}]")
     print(card)
     print(json.dumps({"card": card, "shape": {"P": P, "Mw": MW},
                       "layers": LAYERS, "rounds": ROUNDS, "reps": REPS,
-                      "rows": rows}))
+                      "rows": rows, "launch": launch_rows}))
     return 0
 
 

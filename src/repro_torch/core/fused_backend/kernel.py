@@ -31,12 +31,16 @@ from .emitter import LoweredNetlist, lower_netlist
 from .netlists import build_add_chain, build_mul_step
 
 # The chain warps run the add-only chain over products the producer
-# warps multiply ahead (scripts/torch_fused_probe.py times both modes).
+# warps multiply ahead: 1.435 ms against 1.861 ms for the whole MAC
+# chain on the 3x3 layer at batch 1 (scripts/torch_fused_probe.py).
 MUL_AHEAD = True
-# The chain body's depth: FUSED_DEPTH steps where that body holds at
-# most GATE_BUDGET gates, else one (scripts/torch_fused_regfile.py).
-FUSED_DEPTH = 2
-GATE_BUDGET = 1000
+# The chain body's depth: the deepest of at most FUSED_DEPTH steps whose
+# body holds at most GATE_BUDGET gates.  Timed over both conv layers of
+# the MobileNets stage (scripts/torch_fused_regfile.py), that is the
+# fastest depth of hobflops8 (k=4, 960 gates), 9 (k=4, 1046), 11 (k=3,
+# 961) and 16 (k=2, 878); no depth spills.
+FUSED_DEPTH = 4
+GATE_BUDGET = 1100
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,12 +86,12 @@ def fused_chain_k(fmt: FPFormat, extended: bool = False,
                   requested: int = _build.CHAIN_DEPTH,
                   rounding: str = RNE) -> int:
     """Chain depth the fused backend actually uses: ``requested`` capped
-    at ``FUSED_DEPTH``, and 1 where that body has more than
+    at ``FUSED_DEPTH``, less one while that body has more than
     ``GATE_BUDGET`` gates.  Chain depth never changes values."""
     k = min(requested, FUSED_DEPTH)
-    if k > 1 and chain_body(fmt, k, extended,
-                            rounding).gate_count() > GATE_BUDGET:
-        k = 1
+    while k > 1 and chain_body(fmt, k, extended,
+                               rounding).gate_count() > GATE_BUDGET:
+        k -= 1
     return k
 
 

@@ -34,22 +34,25 @@
 // therefore summed in an order that depends on K alone, whatever the
 // row count, n width or split.
 //
-//   Block: 256 threads.  Warpgroup 0 issues the wgmmas.  Warpgroup 1
-//   stages the plane words of stage t + RAW - 1 with cp.async (zero
-//   filled past K and N) while it decodes stage t into A's swizzled
-//   layout, in a ring of STAGES (A, B_hi, B_lo) tiles: full/empty
-//   mbarriers, the B tiles' bytes counted on the full barrier.
+//   Block: 384 threads.  Warpgroup 0 issues the wgmmas and fetches the
+//   x tiles by cp.async.bulk.  Warpgroups 1 and 2 stage the plane words
+//   of stage t + RAW - 1 with cp.async (zero filled past K and N) while
+//   they decode stage t into A's swizzled layout, in a ring of STAGES
+//   (A, B_hi, B_lo) tiles: full/empty mbarriers, the B tiles' bytes
+//   counted on the full barrier.
 //
 // FMA route (w_f > 10: a code no longer fits TF32).  Each block owns a
 // [BM, BN] output tile, decodes [BK, BN] weight tiles (times scale) in
 // shared memory and accumulates f32 FMAs over k in order.  Two tiles:
 // 64x64, and 8x32 for up to the wrapper's SMALL_M rows.
 //
-// What bounds it on the H100: the tensor-core route at a prefill's M is
-// bound by the decode's integer operations (about 25 a weight, once per
-// weight and row tile) against the 2 x 2MKN TF32 products at 495
-// TFLOP/s; at a decode step's M by the plane bytes (nbits / 8 a weight)
-// at 3.35 TB/s, which the K split spreads over more SMs.
+// What bounds it on the H100: on the tensor-core route, the decode's
+// integer operations (2 nbits + 6 a weight, once per weight and row
+// tile) at 16.7 Tops/s, above the two TF32 products at 495 TFLOP/s and
+// the plane and x bytes at 3.35 TB/s, at a prefill's and a decode
+// step's M alike.  Two decoding warpgroups a block and the K split (few
+// rows) spread the decode over the SMs; a stage's decode stays bound by
+// its latency, not by the integer rate (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -432,7 +435,7 @@ dequant_tc_kernel(const int32_t* __restrict__ planes,
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], PROD_THREADS + 1);  // decoders + B's bytes
+      mbar_init(&full[s], PROD_THREADS + 1);  // decoders + x's bytes
       mbar_init(&empty[s], 128);      // wgmma threads
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -441,6 +444,22 @@ dequant_tc_kernel(const int32_t* __restrict__ planes,
 
   if (tid < 128) {
     // ---- warpgroup 0: wgmma over the ring, chunk sums, epilogue ------
+    // Thread 0 fetches tile t's x halves into slot t % STAGES by
+    // cp.async.bulk, counted on the slot's full barrier: the first
+    // STAGES up front, then each as the wgmma of the slot's last tile
+    // has finished reading it.
+    const size_t xs_lo = (size_t)Kt * Mp * TC_BK;
+    auto fetch_x = [&](int t) {
+      if (tid == 0 && t < T) {
+        const int s = t % STAGES;
+        const size_t off = ((size_t)(kt_begin + t) * Mp + m0) * TC_BK;
+        mbar_arrive_expect_tx(&full[s], 2 * NW * TC_BK * 4);
+        bulk_copy(Bh + s * NW * TC_BK, xs + off, NW * TC_BK * 4, &full[s]);
+        bulk_copy(Bl + s * NW * TC_BK, xs + xs_lo + off, NW * TC_BK * 4,
+                  &full[s]);
+      }
+    };
+    for (int t = 0; t < STAGES; ++t) fetch_x(t);
     float acc[NREG], total[NREG];
 #pragma unroll
     for (int i = 0; i < NREG; ++i) total[i] = 0.0f;
@@ -466,6 +485,7 @@ dequant_tc_kernel(const int32_t* __restrict__ planes,
       asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
       fence_regs<NREG>(acc);
       mbar_arrive(&empty[s]);
+      fetch_x(t + STAGES);
       if ((kt + 1) % KCHUNK_TILES == 0 || kt + 1 == kt_end) {
         if (kt / KCHUNK_TILES == c_begin) {
 #pragma unroll
@@ -496,7 +516,6 @@ dequant_tc_kernel(const int32_t* __restrict__ planes,
     const int Nw = N / LANE, w0 = n0 / LANE;
     const int sh = 23 - w_f;                           // frac's float shift
     const uint32_t ebias = (uint32_t)(127 - ((1 << (w_e - 1)) - 1)) << 23;
-    const size_t xs_lo = (size_t)Kt * Mp * TC_BK;
     // Thread ptid copies word (ptid & 1) of K row (ptid >> 1) & 31 of
     // planes ptid >> 6, ptid >> 6 + PROD_THREADS / 64, ...: one cp.async
     // of 4 bytes each, its address advanced by constants.
@@ -525,21 +544,15 @@ dequant_tc_kernel(const int32_t* __restrict__ planes,
       issue(t + RAW - 1);
       const int s = t % STAGES;
       mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
-      if (ptid == 0) {
-        const size_t off = ((size_t)(kt_begin + t) * Mp + m0) * TC_BK;
-        mbar_arrive_expect_tx(&full[s], 2 * NW * TC_BK * 4);
-        bulk_copy(Bh + s * NW * TC_BK, xs + off, NW * TC_BK * 4, &full[s]);
-        bulk_copy(Bl + s * NW * TC_BK, xs + xs_lo + off, NW * TC_BK * 4,
-                  &full[s]);
-      }
       // Gather the WPT codes of (k = kk, n = wsel*32 + jb + j) straight
       // into float bit positions: frac and exp at sh.., sign at 31.
       const uint32_t* rw = raw + (t % RAW) * RAW_WORDS + wsel * 32 + kk;
       uint32_t v[WPT];
 #pragma unroll
       for (int j = 0; j < WPT; ++j) v[j] = 0u;
-#pragma unroll 3
-      for (int b = 0; b < nbits; ++b) {
+#pragma unroll
+      for (int b = 0; b < MAX_NBITS; ++b) {
+        if (b >= nbits) break;
         const uint32_t P = rw[b * 64];
         const int pb = b == nbits - 1 ? 31 : b + sh;
         const uint32_t Pr = __funnelshift_l(P, P, pb - jb);

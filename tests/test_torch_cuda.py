@@ -88,7 +88,10 @@ def test_kernels_block_independent(cuda):
     outs = []
     for blocks in ({}, {"p_block": 1, "m_block": 6, "c_block": 45},
                    {"p_block": 16, "m_block": 2, "c_block": 5},
-                   {"p_block": 3, "m_block": 32, "c_block": 40}):
+                   {"p_block": 3, "m_block": 32, "c_block": 40},
+                   {"p_block": 2, "m_block": 16, "c_block": 8},
+                   {"p_block": 4, "m_block": 8, "c_block": 7},
+                   {"p_block": 1, "m_block": 6, "c_block": 64}):
         for k in (1, 4):
             kw = dict(fmt=F9, c_unroll=k, **blocks)
             outs.append(interp.bitslice_mac_cuda(i_masks, w_planes, **kw))
@@ -96,6 +99,22 @@ def test_kernels_block_independent(cuda):
     torch.cuda.synchronize()
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 5, 13, 45])
+@pytest.mark.parametrize("c_unroll", [1, 4])
+def test_fused_ring_edges(cuda, C, c_unroll):
+    """The fused kernel's ring at one channel, fewer channels than a ring
+    slot, and a C that is not a multiple of the slot or the chain depth,
+    against its plain version."""
+    rng = np.random.default_rng(C)
+    i_masks, w_planes = _operands(rng, F9, 23, C, 3)
+    kw = dict(fmt=F9, relu=True, c_unroll=c_unroll)
+    want = fused.fused_mac_cuda(i_masks, w_planes, **kw)
+    got = fused.fused_mac_cuda(i_masks.to(cuda), w_planes.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.gpu
@@ -300,20 +319,34 @@ def test_launch_blocks_are_checked_before_launch():
 # The emitted fused body, compiled with the host C++ compiler
 # ---------------------------------------------------------------------------
 def test_emitted_body_matches_eval_netlist(tmp_path):
+    """The MAC chain, the multiplier and the add-only chain, emitted as C
+    (every gate an ``HF_LOP3`` truth table, here its C fallback), built
+    with g++ and run against ``eval_netlist``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
-    variants = [(fmt, k) for fmt in (F8, F9) for k in (1, 4)]
+    bodies = []
+    for fmt in (F8, F9):
+        for k in (1, 4):
+            bodies.append(("mac", fmt, k,
+                           fused.fused_chain_lowered(fmt, k, False, RNE)))
+            bodies.append(("add", fmt, k,
+                           fused.fused_add_lowered(fmt, k, False, RNE)))
+        bodies.append(("mul", fmt, 1, fused.fused_mul_lowered(fmt, False,
+                                                             RNE)))
     src = ["#include <cstdint>", "#define HF_INLINE inline"]
-    for i, (fmt, k) in enumerate(variants):
-        lowered = fused.fused_chain_lowered(fmt, k, False, RNE)
+    for i, (kind, fmt, k, lowered) in enumerate(bodies):
         src.append(lowered.cuda_body(f"Body{i}", SIGN_OFF=0))
-        src.append(
-            f'extern "C" void run{i}(const uint32_t* x, const uint32_t* y, '
-            f"uint32_t* acc, int n) {{ for (int i = 0; i < n; ++i) "
-            f"Body{i}::run(x + i * Body{i}::K * Body{i}::NIN, "
-            f"y + i * Body{i}::K * Body{i}::NIN, acc + i * Body{i}::NOUT);"
-            f" }}")
+        if kind == "add":
+            call = (f"Body{i}::run(x + i * Body{i}::K * Body{i}::NIN, "
+                    f"acc + i * Body{i}::NOUT)")
+        else:
+            call = (f"Body{i}::run(x + i * Body{i}::K * Body{i}::NIN, "
+                    f"y + i * Body{i}::K * Body{i}::NIN, "
+                    f"acc + i * Body{i}::NOUT)")
+        src.append(f'extern "C" void run{i}(const uint32_t* x, '
+                   f"const uint32_t* y, uint32_t* acc, int n) {{ "
+                   f"for (int i = 0; i < n; ++i) {call}; }}")
     cpp, so = tmp_path / "bodies.cpp", tmp_path / "bodies.so"
     cpp.write_text("\n".join(src) + "\n")
     subprocess.run([gxx, "-O1", "-shared", "-fPIC", "-o", str(so),
@@ -321,22 +354,25 @@ def test_emitted_body_matches_eval_netlist(tmp_path):
     lib = ctypes.CDLL(str(so))
     rng = np.random.default_rng(11)
     n = 256
-    for i, (fmt, k) in enumerate(variants):
-        lowered = fused.fused_chain_lowered(fmt, k, False, RNE)
+
+    def words(*shape):
+        return rng.integers(0, 2**32, shape, dtype=np.uint64) \
+            .astype(np.uint32)
+
+    for i, (kind, fmt, k, lowered) in enumerate(bodies):
         nin, nout = fmt.nbits, fmt.mult_out().nbits
-
-        def words(*shape):
-            return rng.integers(0, 2**32, shape, dtype=np.uint64) \
-                .astype(np.uint32)
-
-        xs, ys, acc = words(k, nin, n), words(k, nin, n), words(nout, n)
-        inputs = {"acc": acc}
+        width = nout if kind == "add" else nin
+        xs, ys, acc = words(k, width, n), words(k, width, n), words(nout, n)
+        inputs = {} if kind == "mul" else {"acc": acc}
         for j in range(k):
-            inputs[f"x{j}"], inputs[f"y{j}"] = xs[j], ys[j]
+            if kind == "add":
+                inputs[f"p{j}"] = xs[j]
+            else:
+                inputs[f"x{j}"], inputs[f"y{j}"] = xs[j], ys[j]
         want = eval_netlist(lowered.graph, inputs)["out"]
         x = np.ascontiguousarray(xs.transpose(2, 0, 1))
         y = np.ascontiguousarray(ys.transpose(2, 0, 1))
         a = np.ascontiguousarray(acc.T)
         getattr(lib, f"run{i}")(*(ctypes.c_void_p(t.ctypes.data)
                                   for t in (x, y, a)), ctypes.c_int(n))
-        assert (a.T == want).all(), (fmt, k)
+        assert (a.T == want).all(), (kind, fmt, k)

@@ -139,15 +139,56 @@ def test_register_file_overflow_is_raised_at_lowering():
 
 def test_fused_chain_k_policy():
     """The request capped at the fused depth, never past the request,
-    and depth 1 where that body outgrows the gate budget."""
-    assert fused_chain_k(F8, False, 4) == fused.FUSED_DEPTH == 2
-    assert fused_chain_k(F9, False, 4) == 2       # 722 gates at k=2
+    and one step shallower while the chain warps' add-only body outgrows
+    the gate budget."""
+    assert fused_chain_k(F8, False, 4) == fused.FUSED_DEPTH == 4
+    assert fused_chain_k(F9, False, 4) == 4       # 1046 gates at k=4
     assert fused_chain_k(F9, False, 1) == 1
     assert fused_chain_k(F8, False, 2) == 2
-    assert fused_chain_k(FPFormat(5, 5), False, 4) == 2   # 986 gates
-    assert fused_chain_lowered(FPFormat(5, 5), 2, False, RNE) \
-        .gate_count() <= fused.GATE_BUDGET
-    wide = FPFormat(5, 10)        # hobflops16: 1863 gates at k=2
-    assert fused_chain_lowered(wide, 2, False, RNE).gate_count() > \
+    assert fused_chain_k(FPFormat(5, 5), False, 4) == 3   # 961 gates
+    assert fused.chain_body(FPFormat(5, 5), 4, False, RNE) \
+        .gate_count() > fused.GATE_BUDGET
+    wide = FPFormat(5, 10)        # hobflops16: 878 gates at k=2
+    assert fused.chain_body(wide, 3, False, RNE).gate_count() > \
         fused.GATE_BUDGET
-    assert fused_chain_k(wide, False, 4) == 1
+    assert fused_chain_k(wide, False, 4) == 2
+
+
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("name", ["hobflops8", "hobflops9", "hobflops16"])
+def test_split_chain_matches_mac_chain(name, k, extended):
+    """The multiply-ahead split: products of ``build_mul`` fed through
+    the fused kernel's add-only chain (both as the kernel runs them:
+    optimized and avx512-mapped) equal ``build_mac_chain`` bit for bit
+    on random 32-bit words, exception codes included."""
+    fmt = HOBFLOPS_FORMATS[name]
+    out_fmt = fmt.mult_out(extended)
+    rng = np.random.default_rng(k * 10 + extended)
+
+    def words(*shape):
+        return rng.integers(0, 2**32, shape, dtype=np.uint64) \
+            .astype(np.uint32)
+
+    n = 128
+    xs, ys = words(k, fmt.nbits, n), words(k, fmt.nbits, n)
+    acc = words(out_fmt.nbits, n)
+    ins = {"acc": acc}
+    for j in range(k):
+        ins[f"x{j}"], ins[f"y{j}"] = xs[j], ys[j]
+    want = tcg.eval_netlist(tfc.build_mac_chain(fmt, k, extended, RNE),
+                            ins)["out"]
+    mul = tfc.build_mul(fmt, out_fmt, RNE)
+    add = fused.fused_add_lowered(fmt, k, extended, RNE).graph
+    pins = {"acc": acc}
+    for j in range(k):
+        pins[f"p{j}"] = tcg.eval_netlist(mul, {"x": xs[j],
+                                               "y": ys[j]})["out"]
+        lowered = fused.fused_mul_lowered(fmt, extended, RNE).graph
+        assert np.array_equal(
+            np.asarray(tcg.eval_netlist(lowered, {"x0": xs[j],
+                                                  "y0": ys[j]})["out"]),
+            np.asarray(pins[f"p{j}"]))
+    got = tcg.eval_netlist(add, pins)["out"]
+    assert np.array_equal(np.asarray(got), np.asarray(want))
+
