@@ -35,11 +35,13 @@
 // row count, n width or split.
 //
 //   Block: 384 threads.  Warpgroup 0 issues the wgmmas and fetches the
-//   x tiles by cp.async.bulk.  Warpgroups 1 and 2 stage the plane words
-//   of stage t + RAW - 1 with cp.async (zero filled past K and N) while
-//   they decode stage t into A's swizzled layout, in a ring of STAGES
-//   (A, B_hi, B_lo) tiles: full/empty mbarriers, the B tiles' bytes
-//   counted on the full barrier.
+//   x tiles by cp.async.bulk.  Warpgroups 1 and 2 decode alternate K
+//   tiles, each staging the plane words of its tile i + RAW - 1 with
+//   cp.async (zero filled past K and N) while it decodes its tile i
+//   into A's swizzled layout, in a ring of STAGES (A, B_hi, B_lo)
+//   tiles: full/empty mbarriers, the B tiles' bytes counted on the full
+//   barrier.  A tile's decode waits on its own latency (plane loads,
+//   barriers), so two in flight nearly double the decode rate.
 //
 // FMA route (w_f > 10: a code no longer fits TF32).  Each block owns a
 // [BM, BN] output tile, decodes [BK, BN] weight tiles (times scale) in
@@ -200,13 +202,12 @@ constexpr int RAW = 3;               // plane-word ring (cp.async)
 constexpr int RAW_WORDS = MAX_NBITS * 2 * TC_BK;   // [nbits][2 words][BK]
 constexpr int A_FLOATS = TC_BN * TC_BK;
 constexpr int NPROD = 2;             // decoding warpgroups a block
-constexpr int PROD_THREADS = 128 * NPROD;
-constexpr int TC_THREADS = 128 + PROD_THREADS;
-constexpr int WPT = A_FLOATS / PROD_THREADS;   // weights a decoder decodes
+constexpr int TC_THREADS = 128 * (1 + NPROD);
+constexpr int WPT = A_FLOATS / 128;  // weights a decoder decodes a tile
 
 __host__ __device__ constexpr size_t tc_smem_bytes(int nw) {
   return 1024 + (size_t)STAGES * 4 * (A_FLOATS + 2 * nw * TC_BK) +
-         (size_t)RAW * 4 * RAW_WORDS + 2 * STAGES * 8;
+         (size_t)NPROD * RAW * 4 * RAW_WORDS + 2 * STAGES * 8;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -274,8 +275,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void producer_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(PROD_THREADS) : "memory");
+// Named barrier 1 + g over decoding warpgroup g alone (immediate ids:
+// a register id would reserve all 16 barriers of the SM).
+__device__ __forceinline__ void producer_sync(int g) {
+  static_assert(NPROD == 2, "one named barrier a decoding warpgroup");
+  if (g == 0)
+    asm volatile("bar.sync 1, 128;" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 128;" ::: "memory");
 }
 
 // wgmma descriptor of a K-major tile with the 128-byte swizzle: rows of
@@ -422,7 +429,7 @@ dequant_tc_kernel(const int32_t* __restrict__ planes,
   float* Bh = As + STAGES * A_FLOATS;
   float* Bl = Bh + STAGES * NW * TC_BK;
   uint32_t* raw = reinterpret_cast<uint32_t*>(Bl + STAGES * NW * TC_BK);
-  uint64_t* full = reinterpret_cast<uint64_t*>(raw + RAW * RAW_WORDS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(raw + NPROD * RAW * RAW_WORDS);
   uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x;
@@ -435,7 +442,7 @@ dequant_tc_kernel(const int32_t* __restrict__ planes,
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], PROD_THREADS + 1);  // decoders + x's bytes
+      mbar_init(&full[s], 128 + 1);   // a warpgroup's decoders + x's bytes
       mbar_init(&empty[s], 128);      // wgmma threads
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -509,44 +516,49 @@ dequant_tc_kernel(const int32_t* __restrict__ planes,
         dst[(size_t)m * N + n] = partial ? total[i] : mul_ftz(total[i], scale);
     }
   } else {
-    // ---- warpgroup 1: stage plane words, decode into A, fetch x ------
-    const int ptid = tid - 128;
+    // ---- warpgroups 1..NPROD: group g stages and decodes the tiles
+    // t = g, g + NPROD, ... (its own plane-word ring and barrier), so
+    // NPROD tiles decode at once --------------------------------------
+    const int g = (tid - 128) / 128, ptid = (tid - 128) % 128;
     const int kk = ptid & 31, q = ptid >> 5;
-    const int wsel = q / (2 * NPROD), jb = (q % (2 * NPROD)) * WPT;
+    const int wsel = q >> 1, jb = (q & 1) * WPT;
     const int Nw = N / LANE, w0 = n0 / LANE;
     const int sh = 23 - w_f;                           // frac's float shift
     const uint32_t ebias = (uint32_t)(127 - ((1 << (w_e - 1)) - 1)) << 23;
+    uint32_t* ring = raw + g * RAW * RAW_WORDS;
     // Thread ptid copies word (ptid & 1) of K row (ptid >> 1) & 31 of
-    // planes ptid >> 6, ptid >> 6 + PROD_THREADS / 64, ...: one cp.async
-    // of 4 bytes each, its address advanced by constants.
+    // planes ptid >> 6, ptid >> 6 + 2, ...: one cp.async of 4 bytes
+    // each, its address advanced by constants.
     const int ck = (ptid >> 1) & 31, cw = ptid & 1, cb = ptid >> 6;
     const bool w_ok = w0 + cw < Nw;
-    constexpr int BSTEP = PROD_THREADS / 64;
-    const size_t plane_step = (size_t)BSTEP * K * Nw;
+    const size_t plane_step = (size_t)2 * K * Nw;
     const int32_t* src0 =
         planes + ((size_t)cb * K + kt_begin * TC_BK + ck) * Nw + w0 + cw;
     const int dst0 = cb * 64 + cw * 32 + ck;
-    auto issue = [&](int t) {
-      if (t < T) {
+    const int Tg = (T - g + NPROD - 1) / NPROD;      // this group's tiles
+    auto issue = [&](int i) {                         // group tile i
+      if (i < Tg) {
+        const int t = g + NPROD * i;
         const bool ok = w_ok && (kt_begin + t) * TC_BK + ck < K;
         const int32_t* src = src0 + (size_t)t * TC_BK * Nw;
-        uint32_t* dst = raw + (t % RAW) * RAW_WORDS + dst0;
-        for (int b = cb; b < nbits; b += BSTEP, src += plane_step, dst += 64 * BSTEP)
+        uint32_t* dst = ring + (i % RAW) * RAW_WORDS + dst0;
+        for (int b = cb; b < nbits; b += 2, src += plane_step, dst += 128)
           cp_async4(dst, ok ? src : planes, ok);
       }
       cp_async_commit();
     };
 #pragma unroll
     for (int i = 0; i < RAW - 1; ++i) issue(i);
-    for (int t = 0; t < T; ++t) {
+    for (int i = 0; i < Tg; ++i) {
+      const int t = g + NPROD * i;
       cp_async_wait<RAW - 2>();
-      producer_sync();          // stage t landed; every decoder left t - 1
-      issue(t + RAW - 1);
+      producer_sync(g);         // tile t landed; the group left its last
+      issue(i + RAW - 1);
       const int s = t % STAGES;
       mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
       // Gather the WPT codes of (k = kk, n = wsel*32 + jb + j) straight
       // into float bit positions: frac and exp at sh.., sign at 31.
-      const uint32_t* rw = raw + (t % RAW) * RAW_WORDS + wsel * 32 + kk;
+      const uint32_t* rw = ring + (i % RAW) * RAW_WORDS + wsel * 32 + kk;
       uint32_t v[WPT];
 #pragma unroll
       for (int j = 0; j < WPT; ++j) v[j] = 0u;
