@@ -543,7 +543,8 @@ def main() -> int:
     # order, each step at least the accumulator path's gate depth of
     # dependent LOP3s, L cycles each, at the SM clock read after timing.
     gates = fused.fused_chain_lowered(fmt, 4, False, RNE).gate_count()
-    step_depth = acc_depth(fused.chain_body(fmt, fk, False, RNE).graph) / fk
+    step_depth = acc_depth(fused.fused_add_lowered(fmt, fk, False,
+                                                 RNE).graph) / fk
     rows = []
     conv_ops = {"1x1": pw_ops, "3x3": layer_operands(3, c)}
     for name, kd in kernels.items():

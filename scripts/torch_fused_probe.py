@@ -15,15 +15,14 @@ Three readings for the port's fused MAC kernel
 3. **Where a step's cycles go.** The measurement-only probe
    instantiation of the kernel (``fused_source(..., probe=True)``)
    stamps ``clock64()`` in every warp: a chain warp's waits on its ring
-   and its chain body, a producer warp's staging, multiplies and waits.
-   Both modes run — multiplying ahead (the chain warps run the add-only
-   chain) and not (they run the whole MAC chain) — at the MobileNets
-   14x14x512 stage's two conv layers at batch 1 (3x3: P=196, C=4608,
-   Mw=16; 1x1: C=512) in hobflops9 with the wrapper's default blocks and
-   chain depth, each checked against the plain version on 64 channels
-   and timed with CUDA events.  The cycles a MAC step are set against
-   the two floors of one chain warp: the LOP3 issue floor and the
-   latency floor (the accumulator path's gate depth a step x L).
+   and its add-only chain body, a producer warp's staging, multiplies
+   and waits; at the MobileNets 14x14x512 stage's two conv layers at
+   batch 1 (3x3: P=196, C=4608, Mw=16; 1x1: C=512) in hobflops9 with the
+   wrapper's default blocks and chain depth, checked against the plain
+   version on 64 channels and timed with CUDA events.  The cycles a MAC
+   step are set against the two floors of one chain warp: the LOP3
+   issue floor and the latency floor (the accumulator path's gate depth
+   a step x L).
 
 The SM clock is read with ``nvidia-smi`` right after the probes.
 
@@ -91,32 +90,21 @@ def main() -> int:
     variant = fused.fused_variant(fmt, 4608, relu=True)
     k = variant[1]
     tag = fused.variant_tag(*variant)
-    modes = {"ahead": True, "mac": False}
-    libs = dict(zip(modes, _build.build(
-        [fused.build_job([variant], probe=True, ahead=a)
-         for a in modes.values()])))
+    lib = _build.build([fused.build_job([variant], probe=True)])[0]
     argt = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    entries = {m: (_build.bind(lib.lib, f"fused_mac_{tag}", argt),
-                   _build.bind(lib.lib, f"fused_mac_probe_{tag}",
-                               argt + [ctypes.c_void_p]))
-               for m, lib in libs.items()}
-    bodies = {"ahead": fused.fused_add_lowered(fmt, k, False, RNE),
-              "mac": fused.fused_chain_lowered(fmt, k, False, RNE)}
+    launch = _build.bind(lib.lib, f"fused_mac_{tag}", argt)
+    probe_fn = _build.bind(lib.lib, f"fused_mac_probe_{tag}",
+                           argt + [ctypes.c_void_p])
+    body = fused.fused_add_lowered(fmt, k, False, RNE)
     mul = fused.fused_mul_lowered(fmt, False, RNE)
-    info = {}
-    for m, lib in libs.items():
-        body = bodies[m]
-        depth = acc_depth(body.graph)
-        ops = next(o for n, o in sass_census(lib.path).items()
-                   if "fused_mac_kernel" in n and "ELb0EEv" in n)
-        info[m] = {"gates": body.gate_count(), "acc_depth": depth,
-                   "sass": dict(ops)}
-        print(f"[{m}] chain body k={k}: {body.gate_count()} gates, "
-              f"accumulator path {depth} deep ({depth / k:.1f} a step); "
-              f"kernel SASS {sum(ops.values())} instructions, "
-              f"{ops['LOP3']} LOP3, {ops['LDS']} LDS, {ops['STS']} STS; "
-              f"top {ops.most_common(6)}")
-    print(f"multiplier: {mul.gate_count()} gates a product")
+    depth = acc_depth(body.graph)
+    ops = next(o for n, o in sass_census(lib.path).items()
+               if "fused_mac_kernel" in n and "ELb0EEv" in n)
+    print(f"add-only chain body k={k}: {body.gate_count()} gates, "
+          f"accumulator path {depth} deep ({depth / k:.1f} a step); "
+          f"multiplier {mul.gate_count()} gates; kernel SASS "
+          f"{sum(ops.values())} instructions, {ops['LOP3']} LOP3, "
+          f"{ops['LDS']} LDS, {ops['STS']} STS; top {ops.most_common(6)}")
 
     rng = np.random.default_rng(args.seed)
     P, Mw = 196, 16
@@ -139,65 +127,66 @@ def main() -> int:
         want = fused._fused_mac_torch(i_masks[:, :64], w_planes[:64],
                                       fmt=fmt, extended=False, rounding=RNE,
                                       k=k, relu=True)
-        for m, (launch, probe_fn) in entries.items():
-            out = torch.empty((fmt.mult_out().nbits, P, Mw),
-                              dtype=torch.int32, device="cuda")
-            small = torch.empty_like(out)
-            _build.check(launch(_build.ptr(i_masks[:, :64].contiguous()),
-                                _build.ptr(w_planes[:64].contiguous()),
-                                _build.ptr(small), P, 64, Mw, tp, tw, ct, pw,
-                                _build.stream_ptr()), "fused_mac")
-            probe = torch.zeros(grid * nw * 4, dtype=torch.int64,
-                                device="cuda")
-            _build.check(probe_fn(_build.ptr(i_masks), _build.ptr(w_planes),
-                                  _build.ptr(out), P, C, Mw, tp, tw, ct, pw,
-                                  _build.stream_ptr(), _build.ptr(probe)),
-                         "fused_mac probe")
-            torch.cuda.synchronize()
-            if not torch.equal(small, want):
-                print(f"{layer} [{m}]: kernel != plain version",
-                      file=sys.stderr)
-                return 1
+        out = torch.empty((fmt.mult_out().nbits, P, Mw),
+                          dtype=torch.int32, device="cuda")
+        small = torch.empty_like(out)
+        _build.check(launch(_build.ptr(i_masks[:, :64].contiguous()),
+                            _build.ptr(w_planes[:64].contiguous()),
+                            _build.ptr(small), P, 64, Mw, tp, tw, ct, pw,
+                            _build.stream_ptr()), "fused_mac")
+        probe = torch.zeros(grid * nw * 4, dtype=torch.int64,
+                            device="cuda")
+        _build.check(probe_fn(_build.ptr(i_masks), _build.ptr(w_planes),
+                              _build.ptr(out), P, C, Mw, tp, tw, ct, pw,
+                              _build.stream_ptr(), _build.ptr(probe)),
+                     "fused_mac probe")
+        torch.cuda.synchronize()
+        if not torch.equal(small, want):
+            print(f"{layer}: kernel != plain version",
+                  file=sys.stderr)
+            return 1
 
-            def run():
-                _build.check(launch(_build.ptr(i_masks),
-                                    _build.ptr(w_planes), _build.ptr(out),
-                                    P, C, Mw, tp, tw, ct, pw,
-                                    _build.stream_ptr()), "fused_mac")
-            ms = time_cuda(run, 20)
-            pr = probe.view(grid, nw, 4).double()
-            ch, pd = pr[:, :ncw], pr[:, ncw:]
-            T = pr[0, 0, 3].item()
-            row = {"layer": layer, "mode": m, "C": C, "ms": ms,
-                   "blocks": grid, "c_tile": ct, "producer_warps": pw,
-                   "chain_wait_a_mac": ch[..., 0].mean().item() / C,
-                   "chain_body_a_mac": ch[..., 1].mean().item() / C,
-                   "producer_wait_a_mac": pd[..., 0].mean().item() / C,
-                   "producer_mul_a_mac": pd[..., 1].mean().item() / C,
-                   "producer_stage_a_mac": pd[..., 2].mean().item() / C,
-                   "tiles": T}
-            row["cycles_a_mac"] = row["chain_wait_a_mac"] + \
-                row["chain_body_a_mac"]
-            rows.append(row)
-            print(f"{layer} C={C} [{m}]: {ms:.4f} ms, {grid} blocks of "
-                  f"{32 * nw} threads, C tile {ct}; a MAC step: chain warp "
-                  f"{row['cycles_a_mac']:.0f} cycles (body "
-                  f"{row['chain_body_a_mac']:.0f}, waiting "
-                  f"{row['chain_wait_a_mac']:.0f}); producer staging "
-                  f"{row['producer_stage_a_mac']:.0f}, multiplies "
-                  f"{row['producer_mul_a_mac']:.0f}, waiting "
-                  f"{row['producer_wait_a_mac']:.0f}")
+        def run():
+            _build.check(launch(_build.ptr(i_masks),
+                                _build.ptr(w_planes), _build.ptr(out),
+                                P, C, Mw, tp, tw, ct, pw,
+                                _build.stream_ptr()), "fused_mac")
+        ms = time_cuda(run, 20)
+        pr = probe.view(grid, nw, 4).double()
+        ch, pd = pr[:, :ncw], pr[:, ncw:]
+        T = pr[0, 0, 3].item()
+        row = {"layer": layer, "C": C, "ms": ms,
+               "blocks": grid, "c_tile": ct, "producer_warps": pw,
+               "chain_wait_a_mac": ch[..., 0].mean().item() / C,
+               "chain_body_a_mac": ch[..., 1].mean().item() / C,
+               "producer_wait_a_mac": pd[..., 0].mean().item() / C,
+               "producer_mul_a_mac": pd[..., 1].mean().item() / C,
+               "producer_stage_a_mac": pd[..., 2].mean().item() / C,
+               "tiles": T}
+        row["cycles_a_mac"] = row["chain_wait_a_mac"] + \
+            row["chain_body_a_mac"]
+        rows.append(row)
+        print(f"{layer} C={C}: {ms:.4f} ms, {grid} blocks of "
+              f"{32 * nw} threads, C tile {ct}; a MAC step: chain warp "
+              f"{row['cycles_a_mac']:.0f} cycles (body "
+              f"{row['chain_body_a_mac']:.0f}, waiting "
+              f"{row['chain_wait_a_mac']:.0f}); producer staging "
+              f"{row['producer_stage_a_mac']:.0f}, multiplies "
+              f"{row['producer_mul_a_mac']:.0f}, waiting "
+              f"{row['producer_wait_a_mac']:.0f}")
     clock = float(nvidia_smi("clocks.sm").split()[0])
     print(f"clocks.sm after the probes: {clock:.0f} MHz")
-    for m, inf in info.items():
-        lop = inf["sass"].get("LOP3", 0)
-        print(f"[{m}] floors of one chain warp a MAC step: issue "
-              f"{lop / k:.0f} LOP3 x 2.02 = {lop / k * 2.02:.0f} cycles "
-              f"(kernel LOP3 / k); latency {inf['acc_depth'] / k:.0f} gates"
-              f" x L {L:.2f} = {inf['acc_depth'] / k * L:.0f} cycles")
+    issue = lop3["ilp8_1w"]
+    print(f"floors of one chain warp a MAC step: issue "
+          f"{body.gate_count() / k:.0f} LOP3 x {issue:.2f} = "
+          f"{body.gate_count() / k * issue:.0f} cycles (one LOP3 a gate); "
+          f"latency {depth / k:.1f} gates x L {L:.2f} = "
+          f"{depth / k * L:.0f} cycles")
     print(card)
     print(json.dumps({"card": card, "clock_mhz": clock, "lop3": lop3,
-                      "k": k, "modes": info, "layers": rows}))
+                      "k": k, "gates": body.gate_count(),
+                      "mul_gates": mul.gate_count(), "acc_depth": depth,
+                      "sass": dict(ops), "layers": rows}))
     return 0
 
 

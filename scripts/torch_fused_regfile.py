@@ -102,7 +102,7 @@ def main() -> int:
                     ms.setdefault((layer, k), []).append(
                         time_cuda(fn, REPS))
         for _, k, *_ in vs:
-            lowered = fused.chain_body(fmt, k, False, RNE)
+            lowered = fused.fused_add_lowered(fmt, k, False, RNE)
             tag = "Add_" + fused.variant_tag(fmt, k, False, RNE, False)
             rep = next(r for ent, r in regs.items() if tag in ent)
             row = {"format": name, "k": k, "live_slots": lowered.nslots,

@@ -4,11 +4,10 @@ Port of ``repro.core.pallas_backend.kernel.fused_mac_pallas``: one
 launch carries the whole layer — the netlists emitted as straight-line
 CUDA (:mod:`.emitter`), the channel reduction as a loop inside the
 block, and the ReLU epilogue after it (``csrc/fused_mac.cuh``, whose
-header note says what bounds it on the H100).  With ``MUL_AHEAD``
-producer warps run the multiplier (:func:`fused_mul_lowered`) ahead of
-the chain warps, which run the add-only chain
-(:func:`fused_add_lowered`); without it the chain warps run the whole
-MAC chain (:func:`fused_chain_lowered`).
+header note says what bounds it on the H100).  Producer warps run the
+multiplier (:func:`fused_mul_lowered`) ahead of the chain warps, which
+run the add-only chain (:func:`fused_add_lowered`); the plain version
+runs the whole MAC chain (:func:`fused_chain_lowered`).
 
 Each (format, chain depth, extended, rounding, relu) variant is a C
 entry ``fused_mac_<tag>`` generated into one source; :func:`build_job`
@@ -30,10 +29,6 @@ from repro_torch.core.opt import optimize_mapped
 from .emitter import LoweredNetlist, lower_netlist
 from .netlists import build_add_chain, build_mul_step
 
-# The chain warps run the add-only chain over products the producer
-# warps multiply ahead: 1.435 ms against 1.861 ms for the whole MAC
-# chain on the 3x3 layer at batch 1 (scripts/torch_fused_probe.py).
-MUL_AHEAD = True
 # The chain body's depth: the deepest of at most FUSED_DEPTH steps whose
 # body holds at most GATE_BUDGET gates.  Timed over both conv layers of
 # the MobileNets stage (scripts/torch_fused_regfile.py), that is the
@@ -73,24 +68,15 @@ def fused_mul_lowered(fmt: FPFormat, extended: bool,
         build_mul_step(fmt, extended, rounding), "avx512"))
 
 
-def chain_body(fmt: FPFormat, k: int, extended: bool, rounding: str,
-               ahead: bool = MUL_AHEAD) -> LoweredNetlist:
-    """The body the chain warps run: the add-only chain when multiplying
-    ahead, else the MAC chain."""
-    if ahead:
-        return fused_add_lowered(fmt, k, extended, rounding)
-    return fused_chain_lowered(fmt, k, extended, rounding)
-
-
 def fused_chain_k(fmt: FPFormat, extended: bool = False,
                   requested: int = _build.CHAIN_DEPTH,
                   rounding: str = RNE) -> int:
     """Chain depth the fused backend actually uses: ``requested`` capped
-    at ``FUSED_DEPTH``, less one while that body has more than
-    ``GATE_BUDGET`` gates.  Chain depth never changes values."""
+    at ``FUSED_DEPTH``, less one while the chain warps' add-only body has
+    more than ``GATE_BUDGET`` gates.  Chain depth never changes values."""
     k = min(requested, FUSED_DEPTH)
-    while k > 1 and chain_body(fmt, k, extended,
-                               rounding).gate_count() > GATE_BUDGET:
+    while k > 1 and fused_add_lowered(fmt, k, extended,
+                                      rounding).gate_count() > GATE_BUDGET:
         k -= 1
     return k
 
@@ -113,13 +99,11 @@ def variant_tag(fmt: FPFormat, k: int, extended: bool, rounding: str,
             f"{'_relu' if relu else ''}")
 
 
-def fused_source(variants, probe: bool = False,
-                 ahead: bool = MUL_AHEAD) -> str:
+def fused_source(variants, probe: bool = False) -> str:
     """CUDA source holding one C entry per ``(fmt, k, extended,
     rounding, relu)`` variant; bodies are shared across variants.
     ``probe`` adds each variant's measurement-only ``clock64`` entry
-    ``fused_mac_probe_<tag>`` (``scripts/torch_fused_probe.py``);
-    ``ahead`` picks the multiply-ahead kernel."""
+    ``fused_mac_probe_<tag>`` (``scripts/torch_fused_probe.py``)."""
     variants = sorted(set(variants), key=lambda v: variant_tag(*v))
     parts = ['#include "fused_mac.cuh"', ""]
     seen = set()
@@ -132,20 +116,15 @@ def fused_source(variants, probe: bool = False,
         return name
 
     for fmt, k, extended, rounding, relu in variants:
-        base = variant_tag(fmt, k, extended, rounding, False)
-        if ahead:
-            chain = body("Add_" + base, fused_add_lowered(
-                fmt, k, extended, rounding), fmt, extended)
-            mul = body("Mul_" + variant_tag(fmt, 1, extended, rounding,
-                                            False),
-                       fused_mul_lowered(fmt, extended, rounding), fmt,
-                       extended)
-        else:
-            chain = mul = body("Mac_" + base, fused_chain_lowered(
-                fmt, k, extended, rounding), fmt, extended)
+        chain = body("Add_" + variant_tag(fmt, k, extended, rounding,
+                                          False),
+                     fused_add_lowered(fmt, k, extended, rounding), fmt,
+                     extended)
+        mul = body("Mul_" + variant_tag(fmt, 1, extended, rounding, False),
+                   fused_mul_lowered(fmt, extended, rounding), fmt,
+                   extended)
         tag = variant_tag(fmt, k, extended, rounding, relu)
-        args = (f"{chain}, {mul}, {'true' if ahead else 'false'}, "
-                f"{'true' if relu else 'false'}")
+        args = f"{chain}, {mul}, {'true' if relu else 'false'}"
         parts.append(f"HF_DEFINE_FUSED_LAUNCH(fused_mac_{tag}, {args})")
         if probe:
             parts.append(f"HF_DEFINE_FUSED_PROBE(fused_mac_probe_{tag}, "
@@ -153,11 +132,10 @@ def fused_source(variants, probe: bool = False,
     return "\n".join(parts) + "\n"
 
 
-def build_job(variants, probe: bool = False,
-              ahead: bool = MUL_AHEAD) -> tuple[str, str]:
+def build_job(variants, probe: bool = False) -> tuple[str, str]:
     """The ``(name, source)`` pair :func:`_build.build` compiles for
     these variants (with their probe entries if ``probe``)."""
-    src = fused_source(variants, probe, ahead)
+    src = fused_source(variants, probe)
     return f"fused_mac_{hashlib.sha256(src.encode()).hexdigest()[:8]}", src
 
 
@@ -180,16 +158,14 @@ def _launch_fn(variant):
 
 
 def smem_bytes(nin: int, nout: int, p_block: int, m_block: int,
-               c_block: int, ahead: bool = MUL_AHEAD) -> int:
+               c_block: int) -> int:
     """Dynamic shared memory of one fused block (mirrors
-    ``fused_mac_smem_bytes`` in the header): the ring's barriers and
-    C-tile slots of staged words (two when multiplying ahead, which adds
-    the ring of product planes)."""
+    ``fused_mac_smem_bytes`` in the header): the ring's barriers, two
+    C-tile slots of staged words and the ring of product planes."""
     stages, lanes = 3, -(-p_block * m_block // 32) * 32
     raw = (m_block + p_block) * (c_block * nin + 1)
-    words = 2 * raw + stages * lanes * (c_block * nout + 1) if ahead \
-        else stages * raw
-    return 16 * stages + 4 * words
+    return 16 * stages + 4 * (2 * raw + stages * lanes *
+                              (c_block * nout + 1))
 
 
 def block_threads(p_block: int, m_block: int) -> int:

@@ -37,13 +37,13 @@
 //   MAC identity) into a ring slot, transposed to one odd-pitch row a
 //   lane word / IFM row so every warp read is conflict-free; the index
 //   walk is hoisted (no runtime division per element).
-// * Multiply ahead (AHEAD).  The product of channel c does not depend
-//   on the accumulator: producer threads run the multiplier netlist on
-//   the staged tile into product planes, a second ring (producer group
-//   g of pw takes channels g, g + pw, ...), and the chain
-//   warps run the add-only chain (repro_torch/core/fused_backend/
-//   netlists.py, bit-exact to the MAC chain).  Without AHEAD the chain
-//   warps run the whole MAC chain on the staged words.
+// * Multiply ahead.  The product of channel c does not depend on the
+//   accumulator: producer threads run the multiplier netlist on the
+//   staged tile into product planes, a second ring (producer group g of
+//   pw takes channels g, g + pw, ...), and the chain warps run the
+//   add-only chain (repro_torch/core/fused_backend/netlists.py,
+//   bit-exact to the MAC chain), a quarter fewer LOP3s a step than the
+//   whole MAC chain.
 // * One chain warp a block by default (_build.launch_blocks), so a
 //   batch-1 layer spreads over 98 SMs instead of 49.
 
@@ -79,13 +79,6 @@ HF_INLINE void mbar_init(uint64_t* bar, uint32_t count) {
 
 HF_INLINE void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Arrive once this thread's earlier cp.asyncs have landed.
-HF_INLINE void mbar_arrive_cp_async(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
                    smem_u32(bar))
                : "memory");
 }
@@ -161,21 +154,19 @@ HF_INLINE void stage_tile(uint32_t* raw, const int32_t* __restrict__ i_masks,
 
 }  // namespace hf
 
-// Chain is the body the chain warps run: the add-only chain over
-// products (AHEAD) or the MAC chain over staged words.  Mul is the
-// multiplier the producers run ahead (unused without AHEAD).
-// PROBE instantiations (built only by scripts/torch_fused_probe.py)
+// Chain is the add-only chain the chain warps run over products, Mul
+// the multiplier the producers run ahead.  PROBE instantiations (built only by scripts/torch_fused_probe.py)
 // stamp clock64() in lane 0 of every warp and write 4 words a warp:
 // chain warps [full-barrier wait, chain body, 0, tiles], producer warps
 // [ring waits, multiplies, staging issue, tiles].
-template <class Chain, class Mul, bool AHEAD, bool RELU, bool PROBE>
+template <class Chain, class Mul, bool RELU, bool PROBE>
 __global__ void fused_mac_kernel(const int32_t* __restrict__ i_masks,
                                  const int32_t* __restrict__ w_planes,
                                  int32_t* __restrict__ out, int P, int C,
                                  int Mw, int tp, int tw, int ct, int pw,
                                  unsigned long long* __restrict__ probe) {
-  constexpr int NIN = AHEAD ? Mul::NIN : Chain::NIN;
-  constexpr int NOUT = Chain::NOUT, K = Chain::K, S = hf::STAGES;
+  constexpr int NIN = Mul::NIN, NOUT = Chain::NOUT, K = Chain::K;
+  constexpr int S = hf::STAGES;
   extern __shared__ uint64_t smem64[];
   const int nl = (tp * tw + 31) / 32 * 32;   // chain threads
   const int np = pw * nl;                    // producer threads
@@ -185,7 +176,7 @@ __global__ void fused_mac_kernel(const int32_t* __restrict__ i_masks,
   uint64_t* full = smem64;
   uint64_t* empty = full + S;
   uint32_t* raw = reinterpret_cast<uint32_t*>(empty + S);
-  uint32_t* prod = raw + (AHEAD ? 2 : S) * raw_words;   // AHEAD only
+  uint32_t* prod = raw + 2 * raw_words;
   const int tid = threadIdx.x;
   const int w0 = blockIdx.x * tw, p0 = blockIdx.y * tp;
   const int T = (C + ct - 1) / ct;
@@ -213,18 +204,9 @@ __global__ void fused_mac_kernel(const int32_t* __restrict__ i_masks,
       hf::mbar_wait(&full[s], (t / S) & 1);
       if (PROBE) t1 = clock64();
       const int cend = min(ct, C - t * ct);
-      if constexpr (AHEAD) {
-        const uint32_t* pp = prod + (s * nl + tid) * ppitch;
+      const uint32_t* pp = prod + (s * nl + tid) * ppitch;
 #pragma unroll 1
-        for (int cc = 0; cc < cend; cc += K)
-          Chain::run(pp + cc * NOUT, acc);
-      } else {
-        const uint32_t* xw = raw + s * raw_words + tx * pitch;
-        const uint32_t* yi = raw + s * raw_words + (tw + ty) * pitch;
-#pragma unroll 1
-        for (int cc = 0; cc < cend; cc += K)
-          Mul::run(xw + cc * NIN, yi + cc * NIN, acc);
-      }
+      for (int cc = 0; cc < cend; cc += K) Chain::run(pp + cc * NOUT, acc);
       hf::mbar_arrive(&empty[s]);
       if (PROBE) {
         pa += t1 - t0;
@@ -243,61 +225,44 @@ __global__ void fused_mac_kernel(const int32_t* __restrict__ i_masks,
         out[((size_t)b * P + p) * Mw + w] = (int32_t)acc[b];
     }
   } else {
-    // ---- producer warps: stage C tiles (and multiply ahead) ----------
+    // ---- producer warps: stage C tiles and multiply ahead -------------
     const int i = tid - nl;
-    if constexpr (!AHEAD) {
-      for (int t = 0; t < T; ++t) {
-        const int s = t % S;
-        long long t0 = 0, t1 = 0;
-        if (PROBE) t0 = clock64();
-        hf::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
-        if (PROBE) t1 = clock64();
-        hf::stage_tile<NIN>(raw + s * raw_words, i_masks, w_planes, t, ct,
-                            pitch, P, C, Mw, p0, w0, tp, tw, i, np);
-        hf::mbar_arrive_cp_async(&full[s]);
-        if (PROBE) {
-          pa += t1 - t0;
-          pc += clock64() - t1;
-        }
-      }
-    } else {
-      const int g = i / nl, li = i % nl;      // channel group, lane
-      const int lane = li < tp * tw ? li : 0;
-      const int ty = lane / tw, tx = lane % tw;
-      hf::stage_tile<NIN>(raw, i_masks, w_planes, 0, ct, pitch, P, C, Mw,
-                          p0, w0, tp, tw, i, np);
+    const int g = i / nl, li = i % nl;      // channel group, lane
+    const int lane = li < tp * tw ? li : 0;
+    const int ty = lane / tw, tx = lane % tw;
+    hf::stage_tile<NIN>(raw, i_masks, w_planes, 0, ct, pitch, P, C, Mw,
+                        p0, w0, tp, tw, i, np);
+    hf::cp_async_commit();
+    for (int t = 0; t < T; ++t) {
+      const int s = t % S;
+      uint32_t* rs = raw + (t & 1) * raw_words;
+      long long t0 = 0, t1 = 0, t2 = 0;
+      if (PROBE) t0 = clock64();
+      if (t + 1 < T)
+        hf::stage_tile<NIN>(raw + ((t + 1) & 1) * raw_words, i_masks,
+                            w_planes, t + 1, ct, pitch, P, C, Mw, p0, w0,
+                            tp, tw, i, np);
       hf::cp_async_commit();
-      for (int t = 0; t < T; ++t) {
-        const int s = t % S;
-        uint32_t* rs = raw + (t & 1) * raw_words;
-        long long t0 = 0, t1 = 0, t2 = 0;
-        if (PROBE) t0 = clock64();
-        if (t + 1 < T)
-          hf::stage_tile<NIN>(raw + ((t + 1) & 1) * raw_words, i_masks,
-                              w_planes, t + 1, ct, pitch, P, C, Mw, p0, w0,
-                              tp, tw, i, np);
-        hf::cp_async_commit();
-        if (PROBE) t1 = clock64();
-        hf::cp_async_wait<1>();     // tile t landed (this thread's part)
-        hf::producer_sync(np);      // ... and every producer's
-        hf::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
-        if (PROBE) t2 = clock64();
-        // Products of every channel the chain reads: up to the tile's
-        // end rounded up to the chain depth (zero words past C).
-        const int cend = min(ct, (C - t * ct + K - 1) / K * K);
-        const uint32_t* xw = rs + tx * pitch;
-        const uint32_t* yi = rs + (tw + ty) * pitch;
-        uint32_t* pp = prod + (s * nl + li) * ppitch;
+      if (PROBE) t1 = clock64();
+      hf::cp_async_wait<1>();     // tile t landed (this thread's part)
+      hf::producer_sync(np);      // ... and every producer's
+      hf::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+      if (PROBE) t2 = clock64();
+      // Products of every channel the chain reads: up to the tile's
+      // end rounded up to the chain depth (zero words past C).
+      const int cend = min(ct, (C - t * ct + K - 1) / K * K);
+      const uint32_t* xw = rs + tx * pitch;
+      const uint32_t* yi = rs + (tw + ty) * pitch;
+      uint32_t* pp = prod + (s * nl + li) * ppitch;
 #pragma unroll 1
-        for (int c = g; c < cend; c += pw)
-          Mul::run(xw + c * NIN, yi + c * NIN, pp + c * NOUT);
-        hf::mbar_arrive(&full[s]);
-        hf::producer_sync(np);      // every producer is done with rs
-        if (PROBE) {
-          pa += t2 - t1;
-          pb += clock64() - t2;
-          pc += t1 - t0;
-        }
+      for (int c = g; c < cend; c += pw)
+        Mul::run(xw + c * NIN, yi + c * NIN, pp + c * NOUT);
+      hf::mbar_arrive(&full[s]);
+      hf::producer_sync(np);      // every producer is done with rs
+      if (PROBE) {
+        pa += t2 - t1;
+        pb += clock64() - t2;
+        pc += t1 - t0;
       }
     }
   }
@@ -314,52 +279,49 @@ __global__ void fused_mac_kernel(const int32_t* __restrict__ i_masks,
 
 // Dynamic shared memory of one block (mirrored by
 // repro_torch/core/fused_backend/kernel.py::smem_bytes).
-inline size_t fused_mac_smem_bytes(int nin, int nout, bool ahead, int tp,
-                                   int tw, int ct) {
+inline size_t fused_mac_smem_bytes(int nin, int nout, int tp, int tw,
+                                   int ct) {
   const size_t nl = (size_t)(tp * tw + 31) / 32 * 32;
   const size_t raw = (size_t)(tw + tp) * (ct * nin + 1);
-  const size_t words = ahead ? 2 * raw + hf::STAGES * nl * (ct * nout + 1)
-                             : hf::STAGES * raw;
-  return 16 * hf::STAGES + 4 * words;
+  return 16 * hf::STAGES +
+         4 * (2 * raw + hf::STAGES * nl * (ct * nout + 1));
 }
 
-template <class Chain, class Mul, bool AHEAD, bool RELU, bool PROBE>
+template <class Chain, class Mul, bool RELU, bool PROBE>
 int fused_mac_launch_t(const int32_t* i_masks, const int32_t* w_planes,
                        int32_t* out, int P, int C, int Mw, int tp, int tw,
                        int ct, int pw, void* stream,
                        unsigned long long* probe) {
-  constexpr int NIN = AHEAD ? Mul::NIN : Chain::NIN;
   const size_t smem =
-      fused_mac_smem_bytes(NIN, Chain::NOUT, AHEAD, tp, tw, ct);
+      fused_mac_smem_bytes(Mul::NIN, Chain::NOUT, tp, tw, ct);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mac_kernel<Chain, Mul, AHEAD, RELU, PROBE>,
+      fused_mac_kernel<Chain, Mul, RELU, PROBE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int threads = (1 + pw) * ((tp * tw + 31) / 32 * 32);
   const dim3 grid((Mw + tw - 1) / tw, (P + tp - 1) / tp);
-  fused_mac_kernel<Chain, Mul, AHEAD, RELU, PROBE>
+  fused_mac_kernel<Chain, Mul, RELU, PROBE>
       <<<grid, threads, smem, (cudaStream_t)stream>>>(
           i_masks, w_planes, out, P, C, Mw, tp, tw, ct, pw, probe);
   return (int)cudaGetLastError();
 }
 
-// One C entry per (generated bodies, epilogue) variant.  CHAIN is the
-// body the chain warps run, MUL the multiplier run ahead (AHEAD true),
-// or CHAIN again (AHEAD false).
-#define HF_DEFINE_FUSED_LAUNCH(NAME, CHAIN, MUL, AHEAD, RELU)                 \
+// One C entry per (generated bodies, epilogue) variant: CHAIN the
+// add-only chain, MUL the multiplier.
+#define HF_DEFINE_FUSED_LAUNCH(NAME, CHAIN, MUL, RELU)                        \
   extern "C" int NAME(const int32_t* i_masks, const int32_t* w_planes,      \
                       int32_t* out, int P, int C, int Mw, int tp, int tw,   \
                       int ct, int pw, void* stream) {                       \
-    return fused_mac_launch_t<CHAIN, MUL, AHEAD, RELU, false>(              \
+    return fused_mac_launch_t<CHAIN, MUL, RELU, false>(                     \
         i_masks, w_planes, out, P, C, Mw, tp, tw, ct, pw, stream, nullptr); \
   }
 
 // The measurement-only entry of a variant: probe holds 4 words a warp.
-#define HF_DEFINE_FUSED_PROBE(NAME, CHAIN, MUL, AHEAD, RELU)                  \
+#define HF_DEFINE_FUSED_PROBE(NAME, CHAIN, MUL, RELU)                         \
   extern "C" int NAME(const int32_t* i_masks, const int32_t* w_planes,      \
                       int32_t* out, int P, int C, int Mw, int tp, int tw,   \
                       int ct, int pw, void* stream,                         \
                       unsigned long long* probe) {                          \
-    return fused_mac_launch_t<CHAIN, MUL, AHEAD, RELU, true>(               \
+    return fused_mac_launch_t<CHAIN, MUL, RELU, true>(                      \
         i_masks, w_planes, out, P, C, Mw, tp, tw, ct, pw, stream, probe);   \
   }

@@ -295,11 +295,9 @@ def test_launch_blocks_are_checked_before_launch():
             _build.check_blocks(p, m, 32, smem)
     need = interp.smem_bytes(165, 11, 12, 4, 16, 32)
     assert need == 4 * (20 * (32 * 11 + 1) + 177 * 64)
-    # The fused ring: 3 barrier pairs and 3 slots of staged words, or 2
-    # slots and 3 of product planes (64 chain lanes) multiplying ahead.
-    assert fused.smem_bytes(11, 12, 4, 16, 32, ahead=False) == \
-        48 + 4 * 3 * 20 * (32 * 11 + 1)
-    assert fused.smem_bytes(11, 12, 4, 16, 32, ahead=True) == \
+    # The fused ring: 3 barrier pairs, 2 slots of staged words and 3 of
+    # product planes (64 chain lanes).
+    assert fused.smem_bytes(11, 12, 4, 16, 32) == \
         48 + 4 * (2 * 20 * (32 * 11 + 1) + 3 * 64 * (32 * 12 + 1))
     # One chain warp and FUSED_PRODUCERS producer warps a chain warp; a
     # ring slot shrinks by chain steps until the block fits.

@@ -146,10 +146,10 @@ def test_fused_chain_k_policy():
     assert fused_chain_k(F9, False, 1) == 1
     assert fused_chain_k(F8, False, 2) == 2
     assert fused_chain_k(FPFormat(5, 5), False, 4) == 3   # 961 gates
-    assert fused.chain_body(FPFormat(5, 5), 4, False, RNE) \
+    assert fused.fused_add_lowered(FPFormat(5, 5), 4, False, RNE) \
         .gate_count() > fused.GATE_BUDGET
     wide = FPFormat(5, 10)        # hobflops16: 878 gates at k=2
-    assert fused.chain_body(wide, 3, False, RNE).gate_count() > \
+    assert fused.fused_add_lowered(wide, 3, False, RNE).gate_count() > \
         fused.GATE_BUDGET
     assert fused_chain_k(wide, False, 4) == 2
 
