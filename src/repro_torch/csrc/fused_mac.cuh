@@ -155,8 +155,9 @@ HF_INLINE void stage_tile(uint32_t* raw, const int32_t* __restrict__ i_masks,
 }  // namespace hf
 
 // Chain is the add-only chain the chain warps run over products, Mul
-// the multiplier the producers run ahead.  PROBE instantiations (built only by scripts/torch_fused_probe.py)
-// stamp clock64() in lane 0 of every warp and write 4 words a warp:
+// the multiplier the producers run ahead.  PROBE instantiations (built
+// only by scripts/torch_fused_probe.py) stamp clock64() in lane 0 of
+// every warp and write 4 words a warp:
 // chain warps [full-barrier wait, chain body, 0, tiles], producer warps
 // [ring waits, multiplies, staging issue, tiles].
 template <class Chain, class Mul, bool RELU, bool PROBE>
@@ -170,8 +171,8 @@ __global__ void fused_mac_kernel(const int32_t* __restrict__ i_masks,
   extern __shared__ uint64_t smem64[];
   const int nl = (tp * tw + 31) / 32 * 32;   // chain threads
   const int np = pw * nl;                    // producer threads
-  const int pitch = ct * NIN + 1;            // raw row: odd pitch
-  const int ppitch = ct * NOUT + 1;          // product row: odd pitch
+  const int pitch = ct * NIN + 1;            // raw row, padded a word
+  const int ppitch = ct * NOUT + 1;          // product row, padded a word
   const int raw_words = (tw + tp) * pitch;
   uint64_t* full = smem64;
   uint64_t* empty = full + S;
