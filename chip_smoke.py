@@ -45,7 +45,7 @@ versions:
    M = 4 (a decode step's), on layer 0's weights packed in hobflops9:
    held against its plain version within the float32 summation bound,
    and timed (median of 20 launches after 3 warm-ups) beside the FMA
-   tile of PR 12's kernel (the route it keeps for w_f > 10), its bound
+   tile of its earlier design (the route it keeps for w_f > 10), its bound
    (two TF32 products, the decode's integer operations, the bytes) and
    the earlier f32-FMA bound, the plain version and ``torch.matmul`` on
    the decoded weight;
@@ -89,8 +89,8 @@ TRACED_REQS = 10               # requests under the profiler, per batch
 LM_ARCH = "qwen2-0.5b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 128, 16
 DQ_MS = (LM_BATCH * LM_PROMPT, LM_BATCH)   # prefill rows, decode-step rows
-# fused_mac before its redesign, batch 1 (PERF.md: PR 11 run 7, H100 80GB
-# HBM3 at 700 W); printed beside this run's times.
+# fused_mac before its warp-specialised redesign, batch 1, on an H100 80GB
+# HBM3 at 700 W (PERF.md); printed beside this run's times.
 EARLIER_FUSED_MS = {"1x1": 0.428, "3x3": 4.529}
 
 
@@ -837,7 +837,7 @@ def dequant_phase(seed: int, dev, params: dict, n_sm: int,
         ratio = float((diff / bound.clamp(min=1e-30)).max())
         max_ratio, max_err = max(max_ratio, ratio), max(max_err,
                                                         float(diff.max()))
-        # PR 12's kernel: the FMA route's tile for M, uncounted.
+        # The earlier design: the FMA route's tile for M, uncounted.
         fma_out = torch.empty_like(got)
         earlier_ms = median_device_ms(lambda: dqk.launch(
             x, qt.data, qt.scale, fma_out, sfmt, dqk.tile_for(M)))

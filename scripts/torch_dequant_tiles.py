@@ -3,12 +3,12 @@
 count, on one card.
 
 Builds ``src/repro_torch/csrc/dequant_matmul.cu`` and times both tile
-configurations of its FMA route (PR 12's kernel, kept for formats with
-more than 10 fraction bits) — the 64x64 output tile and the 8x32 tile —
-at
-qwen2-0.5b's four quantized projection shapes (K, N) = (896, 896),
-(896, 128), (896, 4864) and (4864, 896), hobflops9 planes, for row
-counts from a decode step's few rows to a prefill's 512.  Each point is
+configurations of its FMA route (the kernel's earlier design, kept for
+formats with more than 10 fraction bits) — the 64x64 output tile and
+the 8x32 tile — at qwen2-0.5b's four quantized projection shapes
+(K, N) = (896, 896), (896, 128), (896, 4864) and (4864, 896), hobflops9
+planes, for row counts from a decode step's few rows to a prefill's
+512.  Each point is
 the median of 20 launches after 3 warm-ups (``chip_smoke``'s
 ``median_device_ms``), taken in rounds over the two tiles, so drift hits
 both alike; the script prints the median and range of the rounds and the

@@ -107,7 +107,7 @@ def launch(x: torch.Tensor, planes: torch.Tensor, scale: torch.Tensor,
            out: torch.Tensor, sfmt: StorageFormat, tile: int) -> None:
     """Launch the FMA route's tile configuration ``tile`` on checked,
     contiguous CUDA tensors, uncounted.  ``scripts/torch_dequant_tiles.py``
-    and ``chip_smoke.py`` time the FMA tiles with it (the PR 12 kernel);
+    and ``chip_smoke.py`` time the FMA tiles with it (the earlier design);
     everything else goes through :func:`dequant_matmul_cuda`."""
     (M, K), N = x.shape, out.shape[1]
     with torch.cuda.device(x.device):
