@@ -44,17 +44,18 @@
 //   barriers), so two in flight nearly double the decode rate.
 //
 // FMA route (w_f > 10: a code no longer fits TF32).  Each block owns a
-// [BM, BN] output tile, decodes [BK, BN] weight tiles (times scale) in
-// shared memory and accumulates f32 FMAs over k in order.  Two tiles:
-// 64x64, and 8x32 for up to the wrapper's SMALL_M rows.
+// 64x64 output tile, decodes [32, 64] weight tiles (times scale) in
+// shared memory and accumulates f32 FMAs over k in order.
 //
-// What bounds it on the H100: on the tensor-core route, the decode's
-// integer operations (2 nbits + 6 a weight, once per weight and row
-// tile) at 16.7 Tops/s, above the two TF32 products at 495 TFLOP/s and
-// the plane and x bytes at 3.35 TB/s, at a prefill's and a decode
-// step's M alike.  Two decoding warpgroups a block and the K split (few
-// rows) spread the decode over the SMs; a stage's decode stays bound by
-// its latency, not by the integer rate (PERF.md).
+// What bounds it on the H100: the function needs two TF32 products at
+// 495 TFLOP/s, each weight decoded once (2 nbits + 6 integer operations)
+// at 16.7 Tops/s, and the plane and x bytes at 3.35 TB/s.  This kernel
+// decodes each weight once per row tile, so at a prefill's M its decode
+// is several times the function's; two decoding warpgroups a block and
+// the K split (few rows) spread it over the SMs.  A tile's decode is
+// bound about equally by its integer issue (the per-bit funnel shifts
+// and LOP3s) and by its serial steps (plane-word wait, barriers, proxy
+// fence): PERF.md.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -604,26 +605,21 @@ int launch_tc(const int32_t* planes, const float* xs, const float* scale,
 
 }  // namespace
 
-// FMA route.  tile 0: 64x64 output tile, K tiles of 32, 4x4 outputs a
-// thread.  tile 1: 8x32 output tile, K tiles of 64, one output a thread.
-// Returns cudaGetLastError() after the launch; a bad argument returns
-// cudaErrorInvalidValue without launching.
+// FMA route: 64x64 output tiles, K tiles of 32, 4x4 outputs a thread.
+// Both entries return cudaGetLastError() after their launches and set
+// *launched to the number of kernels they launched; a bad argument
+// returns cudaErrorInvalidValue without launching.
 extern "C" int dequant_matmul_launch(const float* x, const int32_t* planes,
                                      const float* scale, float* out, int M,
                                      int K, int N, int nbits, int w_e,
-                                     int w_f, int tile, void* stream) {
+                                     int w_f, int* launched, void* stream) {
+  *launched = 0;
   if (M < 1 || K < 0 || N < LANE || N % LANE != 0 || nbits < 1 ||
       nbits > MAX_NBITS || nbits != 1 + w_e + w_f || w_e < 1 || w_f > 23)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile == 0)
-    launch_fma<64, 64, 32, 4, 4>(x, planes, scale, out, M, K, N, nbits, w_e,
-                                 w_f, s);
-  else if (tile == 1)
-    launch_fma<8, 32, 64, 1, 1>(x, planes, scale, out, M, K, N, nbits, w_e,
-                                w_f, s);
-  else
-    return (int)cudaErrorInvalidValue;
+  launch_fma<64, 64, 32, 4, 4>(x, planes, scale, out, M, K, N, nbits, w_e,
+                               w_f, static_cast<cudaStream_t>(stream));
+  *launched = 1;
   return (int)cudaGetLastError();
 }
 
@@ -636,7 +632,9 @@ extern "C" int dequant_matmul_tc_launch(const float* x, const int32_t* planes,
                                         const float* scale, float* out,
                                         float* xs, float* part, int M, int K,
                                         int N, int nbits, int w_e, int w_f,
-                                        int nw, int split, void* stream) {
+                                        int nw, int split, int* launched,
+                                        void* stream) {
+  *launched = 0;
   if (M < 1 || K < 1 || N < LANE || N % LANE != 0 || nbits < 2 ||
       nbits > MAX_NBITS || nbits != 1 + w_e + w_f || w_e < 1 || w_e > 8 ||
       w_f > 10 || (nw != 8 && nw != 16 && nw != 32 && nw != 64))
@@ -647,6 +645,7 @@ extern "C" int dequant_matmul_tc_launch(const float* x, const int32_t* planes,
   const size_t chunks16 = (size_t)Kt * Mp * 8;
   split_x_kernel<<<(unsigned)((chunks16 + 255) / 256), 256, 0, s>>>(
       x, xs, M, K, Mp, Kt);
+  *launched = 1;
   int code;
   switch (nw) {
     case 8:
@@ -666,10 +665,12 @@ extern "C" int dequant_matmul_tc_launch(const float* x, const int32_t* planes,
                            Kt, nbits, w_e, w_f, split, s);
   }
   if (code != 0) return code;
+  *launched = 2;
   if (split && nchunks > 1) {
     const size_t MN = (size_t)M * N;
     chunk_sum_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, s>>>(
         part, scale, out, MN, nchunks);
+    *launched = 3;
   }
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,7 @@ bounds it on the H100).  Two routes, by format (:func:`plan`):
   exact in TF32, so the codes feed ``wgmma`` as they are, x in two TF32
   halves, and ``scale`` is applied once in the epilogue;
 * **f32 FMAs** (``w_f > 10``): the decoded weight times ``scale`` in
-  f32 FMA chains.
+  f32 FMA chains over 64x64 output tiles.
 
 Layouts:
     x      : [M, K] float32
@@ -31,17 +31,16 @@ from repro_torch.core.fpformat import StorageFormat
 from .ref import dequant_matmul_ref
 
 LANE = 32
-# The FMA route's tile configurations, by index: a 64x64 output tile,
-# and an 8x32 tile that gives a decode step's few rows more blocks
-# along N.
+# The tensor-core route's two row classes, named by their narrowest n
+# width: TILE_M8 (up to SMALL_M rows: n width 8-64, each block one K
+# chunk, a chunk-sum kernel after) and TILE_M64 (more rows: n width 64,
+# each block walks every chunk).
 TILE_M64, TILE_M8 = 0, 1
-# Up to SMALL_M rows take the FMA route's 8x32 tile, and on the tensor
-# core route each block owns one K chunk (more blocks along K).  For the
-# FMA tiles a layer of qwen2-0.5b's projections (2 wq/wo + 2 wk/wv + 2
-# w_gate/w_up + w_down) takes 0.47 of the 64x64 tile's time with the
-# 8x32 tile at M <= 4, 0.71 at M = 64 and 1.09 at M = 128
-# (scripts/torch_dequant_tiles.py on an H100 80GB HBM3, 700 W).
-SMALL_M = 64
+# Splitting K pays up to SMALL_M rows.  A layer of qwen2-0.5b's
+# projections (2 wq/wo + 2 wk/wv + 2 w_gate/w_up + w_down) takes 0.45-0.49
+# of the walked time split at M = 4-64, 0.56 at 128, 0.81 at 256 and 1.15
+# at 512 (scripts/torch_dequant_probe.py on an H100 80GB HBM3, 700 W).
+SMALL_M = 256
 # A decoded code has w_f + 1 significant bits: exact in TF32 (10
 # explicit fraction bits) up to w_f = 10.
 TC_MAX_WF = 10
@@ -49,13 +48,12 @@ TC_MAX_WF = 10
 # an output's order of accumulation depends on K alone.
 KCHUNK = 256
 TC_BN = 64                       # weight columns a block
-N_WIDTHS = (8, 16, 32, 64)       # rows of x a block, up to SMALL_M rows
-N_WIDTH_LARGE = 64               # rows of x a block above SMALL_M
+N_WIDTHS = (8, 16, 32, 64)       # rows of x a block: the least that holds M
 
 
 def tile_for(M: int) -> int:
-    """The row-count class of a launch over ``M`` rows: ``TILE_M8`` up
-    to ``SMALL_M`` rows, else ``TILE_M64`` (the FMA route's tile)."""
+    """The row class of a launch over ``M`` rows: ``TILE_M8`` up to
+    ``SMALL_M`` rows, else ``TILE_M64``."""
     return TILE_M8 if M <= SMALL_M else TILE_M64
 
 
@@ -63,19 +61,17 @@ def plan(M: int, K: int, sfmt: StorageFormat) -> dict:
     """How a launch over ``M`` rows and ``K`` terms in ``sfmt`` runs.
 
     ``route`` is ``"tensor_core"`` for ``w_f <= TC_MAX_WF`` and
-    ``w_e <= 8``, else ``"fma"`` (with the FMA ``tile``).  On the tensor
-    core route ``n_width`` is the rows of x a block takes (the smallest
-    of ``N_WIDTHS`` that holds M, or ``N_WIDTH_LARGE`` above SMALL_M),
-    ``chunks`` the K chunks of ``KCHUNK``, and ``split`` whether each
-    block owns one chunk (up to SMALL_M rows) or walks them all.
+    ``w_e <= 8``, else ``"fma"``.  On the tensor core route ``n_width``
+    is the rows of x a block takes (the least of ``N_WIDTHS`` that holds
+    M, or the widest), ``chunks`` the K chunks of ``KCHUNK``, and
+    ``split`` whether each block owns one chunk (``tile_for(M)`` is
+    ``TILE_M8``) or walks them all.
     """
-    small = tile_for(M) == TILE_M8
     if sfmt.w_f > TC_MAX_WF or sfmt.w_e > 8:
-        return {"route": "fma", "tile": tile_for(M)}
+        return {"route": "fma"}
     return {"route": "tensor_core",
-            "n_width": next(w for w in N_WIDTHS if w >= M) if small
-            else N_WIDTH_LARGE,
-            "chunks": -(-K // KCHUNK), "split": small}
+            "n_width": next((w for w in N_WIDTHS if w >= M), N_WIDTHS[-1]),
+            "chunks": -(-K // KCHUNK), "split": tile_for(M) == TILE_M8}
 
 
 def build_job() -> tuple[str, str]:
@@ -88,13 +84,13 @@ _BOUND: dict = {}
 
 def load(library: _build.Library) -> None:
     """Bind the C entry of a built ``dequant_matmul`` library."""
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     _BOUND["launch"] = _build.bind(
         library.lib, "dequant_matmul_launch",
-        [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp])
+        [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, pi, vp])
     _BOUND["tc_launch"] = _build.bind(
         library.lib, "dequant_matmul_tc_launch",
-        [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp])
+        [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, pi, vp])
 
 
 def _entry(name: str):
@@ -104,39 +100,44 @@ def _entry(name: str):
 
 
 def launch(x: torch.Tensor, planes: torch.Tensor, scale: torch.Tensor,
-           out: torch.Tensor, sfmt: StorageFormat, tile: int) -> None:
-    """Launch the FMA route's tile configuration ``tile`` on checked,
-    contiguous CUDA tensors, uncounted.  ``scripts/torch_dequant_tiles.py``
-    and ``chip_smoke.py`` time the FMA tiles with it (the earlier design);
-    everything else goes through :func:`dequant_matmul_cuda`."""
+           out: torch.Tensor, sfmt: StorageFormat) -> int:
+    """Launch the FMA route on checked, contiguous CUDA tensors,
+    uncounted; returns the kernels launched (1).  ``chip_smoke.py``
+    times the FMA route at the tensor-core route's shapes with it."""
     (M, K), N = x.shape, out.shape[1]
+    n = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         code = _entry("launch")(_build.ptr(x), _build.ptr(planes),
                                 _build.ptr(scale), _build.ptr(out), M, K, N,
-                                sfmt.nbits, sfmt.w_e, sfmt.w_f, tile,
-                                _build.stream_ptr())
+                                sfmt.nbits, sfmt.w_e, sfmt.w_f,
+                                ctypes.byref(n), _build.stream_ptr())
     _build.check(code, "dequant_matmul")
+    return n.value
 
 
 def launch_tc(x: torch.Tensor, planes: torch.Tensor, scale: torch.Tensor,
               out: torch.Tensor, sfmt: StorageFormat, n_width: int,
-              split: bool) -> None:
+              split: bool) -> int:
     """Launch the tensor-core route on checked, contiguous CUDA tensors,
     uncounted; the split x and the chunk sums live in workspaces from
-    ``torch.empty``."""
+    ``torch.empty``.  Returns the kernels launched: the x split, the
+    main kernel and, when ``split`` and K spans several chunks, the
+    chunk sum."""
     (M, K), N = x.shape, out.shape[1]
     Mp, Kt = -(-M // n_width) * n_width, -(-K // 32)
     chunks = -(-K // KCHUNK)
     xs = torch.empty(2 * Kt * Mp * 32, dtype=torch.float32, device=x.device)
     part = torch.empty(chunks * M * N if split and chunks > 1 else 1,
                        dtype=torch.float32, device=x.device)
+    n = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         code = _entry("tc_launch")(
             _build.ptr(x), _build.ptr(planes), _build.ptr(scale),
             _build.ptr(out), _build.ptr(xs), _build.ptr(part), M, K, N,
             sfmt.nbits, sfmt.w_e, sfmt.w_f, n_width, int(split),
-            _build.stream_ptr())
+            ctypes.byref(n), _build.stream_ptr())
     _build.check(code, "dequant_matmul")
+    return n.value
 
 
 def dequant_matmul_cuda(x: torch.Tensor, planes: torch.Tensor,
@@ -169,12 +170,16 @@ def dequant_matmul_cuda(x: torch.Tensor, planes: torch.Tensor,
         return out.zero_()
     p = plan(M, K, sfmt)
     if p["route"] == "fma":
-        launch(x, planes, scale.contiguous(), out, sfmt, p["tile"])
+        n = launch(x, planes, scale.contiguous(), out, sfmt)
     else:
-        launch_tc(x, planes, scale.contiguous(), out, sfmt, p["n_width"],
-                  p["split"])
+        n = launch_tc(x, planes, scale.contiguous(), out, sfmt,
+                      p["n_width"], p["split"])
     dequant_matmul_cuda.launches += 1
+    dequant_matmul_cuda.kernel_launches += n
     return out
 
 
+# Calls that launched, and the CUDA kernels they launched (up to three a
+# call on the tensor-core route).
 dequant_matmul_cuda.launches = 0
+dequant_matmul_cuda.kernel_launches = 0

@@ -175,6 +175,19 @@ def _within_sum_bound(got, want, x, w):
     return bool(((got - want).abs() <= bound).all())
 
 
+def _tf32_round(x):
+    """float32 rounded to TF32's 10 fraction bits, ties away from zero
+    (``cvt.rna.tf32.f32``)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+# The tensor-core route's largest error against the plain version, in
+# units of the summation bound, is at most this share of a single-TF32
+# product's (``chip_smoke.DQ_SPLIT_MARGIN``).
+DQ_SPLIT_MARGIN = 0.1
+
+
 DQ_FORMATS = [(StorageFormat(5, 2), None), (StorageFormat(5, 3), None),
               (StorageFormat(4, 3), None), (StorageFormat(8, 7), 2.0 ** -100)]
 
@@ -201,10 +214,10 @@ def test_dequant_matmul_matches_plain_version(cuda, sfmt, scale, M, K, N):
 
 @pytest.mark.gpu
 def test_dequant_matmul_tiles_agree_and_count(cuda):
-    """Each output is one FMA chain over k in order, so the rows of a
-    launch over many rows (64x64 tile) and of launches over a few rows
-    (8x32 tile up to SMALL_M rows) give the same bits; every launch adds
-    one to the count."""
+    """Each output is summed in an order that depends on K alone, so the
+    rows of a launch over many rows (TILE_M64: blocks walk K) and of
+    launches over a few rows (TILE_M8 up to SMALL_M rows: K split over
+    blocks) give the same bits; every launch adds one to the count."""
     rng = np.random.default_rng(5)
     qt = _on(_packed(rng, 200, 352, StorageFormat(5, 3)), cuda)
     x = torch.from_numpy(rng.standard_normal((600, 200))
@@ -224,17 +237,18 @@ def test_dequant_matmul_tiles_agree_and_count(cuda):
 
 
 # (M, K, format) -> the route, n width, K chunks and split; a format
-# whose codes do not fit TF32 (w_f > 10) takes the FMA route's tile.
+# whose codes do not fit TF32 (w_f > 10) takes the FMA route.
 ROUTES = [
     (1, 896, StorageFormat(5, 3), "tensor_core", 8, 4, True),
     (4, 4864, StorageFormat(5, 3), "tensor_core", 8, 19, True),
     (9, 512, StorageFormat(8, 7), "tensor_core", 16, 2, True),
     (33, 513, StorageFormat(4, 3), "tensor_core", 64, 3, True),
     (64, 75, StorageFormat(5, 10), "tensor_core", 64, 1, True),
-    (65, 896, StorageFormat(5, 3), "tensor_core", 64, 4, False),
+    (256, 896, StorageFormat(5, 3), "tensor_core", 64, 4, True),
+    (257, 896, StorageFormat(5, 3), "tensor_core", 64, 4, False),
     (512, 4864, StorageFormat(5, 2), "tensor_core", 64, 19, False),
-    (4, 896, StorageFormat(4, 11), "fma", dqk.TILE_M8, None, None),
-    (512, 896, StorageFormat(4, 11), "fma", dqk.TILE_M64, None, None),
+    (4, 896, StorageFormat(4, 11), "fma", None, None, None),
+    (512, 896, StorageFormat(4, 11), "fma", None, None, None),
 ]
 
 
@@ -243,35 +257,51 @@ def test_dequant_matmul_routing(M, K, sfmt, route, width, chunks, split):
     p = dqk.plan(M, K, sfmt)
     assert p["route"] == route
     if route == "fma":
-        assert p == {"route": "fma", "tile": width}
-        assert width == dqk.tile_for(M)
+        assert p == {"route": "fma"}
     else:
         assert p == {"route": route, "n_width": width, "chunks": chunks,
                      "split": split}
-        assert width >= min(M, dqk.N_WIDTH_LARGE) and chunks * dqk.KCHUNK >= K
+        assert width >= min(M, dqk.N_WIDTHS[-1]) and chunks * dqk.KCHUNK >= K
+        assert split == (dqk.tile_for(M) == dqk.TILE_M8)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("sfmt,M,K,N", [
     (StorageFormat(5, 3), 4, 200, 96),      # K below one chunk
     (StorageFormat(5, 3), 7, 1100, 160),    # K not a multiple of the chunk
-    (StorageFormat(5, 3), 70, 1100, 224),   # the same, every chunk a block
+    (StorageFormat(5, 3), 300, 1100, 224),  # the same, blocks walking K
     (StorageFormat(5, 10), 17, 640, 64),    # the widest TF32 fraction
     (StorageFormat(4, 11), 5, 600, 96),     # w_f > 10: the FMA route
     (StorageFormat(4, 11), 80, 600, 96),
 ])
 def test_dequant_matmul_chunks_and_routes(cuda, sfmt, M, K, N):
+    """Against the plain version within the summation bound; on the
+    tensor-core route also at most ``DQ_SPLIT_MARGIN`` of the error of a
+    single-TF32 product (x rounded to TF32), so x's low half counts.  A
+    call counts one launch and the CUDA kernels it launched."""
     rng = np.random.default_rng(M * 7 + K)
     qt = _on(_packed(rng, K, N, sfmt), cuda)
     x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)) \
         .to(cuda)
     n0 = dq.dequant_matmul_cuda.launches
+    k0 = dq.dequant_matmul_cuda.kernel_launches
     got = dq.dequant_matmul(x, qt)
     want = dequant_matmul_ref(x, qt.data, qt.scale, sfmt, N)
     torch.cuda.synchronize()
+    p = dqk.plan(M, K, sfmt)
+    kernels = 1 if p["route"] == "fma" else \
+        2 + (p["split"] and p["chunks"] > 1)
     assert dq.dequant_matmul_cuda.launches == n0 + 1
+    assert dq.dequant_matmul_cuda.kernel_launches == k0 + kernels
     assert got.shape == (M, N) and bool(torch.isfinite(got).all())
-    assert _within_sum_bound(got, want, x, dequantize(qt))
+    w = dequantize(qt)
+    assert _within_sum_bound(got, want, x, w)
+    if p["route"] == "tensor_core":
+        bound = (2 * K * 2.0 ** -24 * (x.abs() @ w.abs())).clamp(min=1e-30)
+        ctrl = dequant_matmul_ref(_tf32_round(x), qt.data, qt.scale, sfmt, N)
+        ratio = float(((got - want).abs() / bound).max())
+        ctrl_ratio = float(((ctrl - want).abs() / bound).max())
+        assert ratio <= DQ_SPLIT_MARGIN * ctrl_ratio, (ratio, ctrl_ratio)
 
 
 @pytest.mark.gpu
