@@ -32,14 +32,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Hopper launch defaults of both MAC kernels (see launch_blocks).
 # Values never depend on them.
-THREADS = 64               # bitslice_mac: threads a block, (lane word, row)
-FUSED_THREADS = 32         # fused_mac: chain threads a block (one warp)
+CHAIN_THREADS = 32         # chain threads a block: one chain warp
 FUSED_PRODUCERS = 3        # fused_mac: producer warps a chain warp
+INTERP_PRODUCERS = 1       # bitslice_mac: producer warps a chain warp
 M_BLOCK = 32               # lane words a block at most: one warp per row
-C_BLOCK = 32               # bitslice_mac: channels of the shared C tile
+C_BLOCK = 8                # bitslice_mac: channels of a ring slot
 FUSED_C_BLOCK = 8          # fused_mac: channels of a ring slot
 CHAIN_DEPTH = 4            # MAC steps a chain body is asked to take
 MAX_THREADS = 1024         # threads one block may hold
+INTERP_MAX_THREADS = 512   # bitslice_mac's __launch_bounds__
 MAX_SMEM = 232448          # bytes of shared memory one block may use
 
 
@@ -164,19 +165,17 @@ def launch_blocks(P: int, C: int, Mw: int, *, p_block: int | None = None,
     channels and ``Mw`` lane words — the one place their defaults live.
 
     A block covers ``m_block x p_block`` (lane word, row) chains: up to
-    :data:`M_BLOCK` lane words and, for ``bitslice_mac``, :data:`THREADS`
-    threads in all; for ``fused_mac`` :data:`FUSED_THREADS` chain
-    threads — one chain warp a block, so a batch-1 layer's 98 chain
-    warps land on 98 SMs — beside as many producer threads.
-    ``c_block`` channels are staged a tile (:data:`C_BLOCK`) or a ring
-    slot (:data:`FUSED_C_BLOCK`).  Given values are kept; missing ones
-    take these defaults clamped to the problem.  ``c_unroll`` is always
-    clamped (:func:`chain_depth`).
+    :data:`M_BLOCK` lane words and :data:`CHAIN_THREADS` chain threads —
+    one chain warp a block, so a batch-1 layer's 98 chain warps land on
+    98 SMs — beside producer warps of their own.  ``c_block`` channels
+    are a ring slot (:data:`C_BLOCK` for ``bitslice_mac``,
+    :data:`FUSED_C_BLOCK` for ``fused_mac``).  Given values are kept;
+    missing ones take these defaults clamped to the problem.
+    ``c_unroll`` is always clamped (:func:`chain_depth`).
     """
     fused = {"bitslice_mac": False, "fused_mac": True}[kernel]
     m = m_block or min(M_BLOCK, Mw)
-    threads = FUSED_THREADS if fused else THREADS
-    return {"p_block": p_block or min(max(1, threads // m), P),
+    return {"p_block": p_block or min(max(1, CHAIN_THREADS // m), P),
             "m_block": m,
             "c_block": c_block or min(FUSED_C_BLOCK if fused else C_BLOCK,
                                       C),
@@ -190,16 +189,19 @@ def c_tile(c_block: int, k: int) -> int:
 
 
 def check_blocks(p_block: int, m_block: int, ct: int, smem: int,
-                 threads: int | None = None) -> None:
+                 threads: int | None = None,
+                 max_threads: int = MAX_THREADS, what: str = "") -> None:
     """Raise unless a block over ``m_block x p_block`` chains — of
-    ``threads`` threads, by default one a chain — with a C tile of
-    ``ct`` channels and ``smem`` bytes of shared memory can launch; a
-    refused launch would never run."""
+    ``threads`` threads (at most ``max_threads``), by default one a
+    chain — with a C tile of ``ct`` channels and ``smem`` bytes of shared
+    memory can launch; a refused launch would never run.  ``what`` names
+    a part of the shared memory in the message."""
     threads = p_block * m_block if threads is None else threads
-    if min(p_block, m_block) < 1 or threads > MAX_THREADS \
+    if min(p_block, m_block) < 1 or threads > max_threads \
             or smem > MAX_SMEM:
         raise ValueError(f"blocks p={p_block} m={m_block} c={ct} need "
-                         f"{threads} threads, {smem} B shared")
+                         f"{threads} threads, {smem} B shared"
+                         + (f" ({what})" if what else ""))
 
 
 def resolve_device(device) -> torch.device:

@@ -5,161 +5,400 @@
 //
 // What it computes: out[NOUT, P, Mw] int32 bit planes of
 //   O[p, 32*w + j] = fold_c add(mul(I[p, c], W[c, 32*w + j]), acc),  acc0 = +0
-// folding the C input channels in channel order through a k-step MAC
-// chain netlist.  i_masks [P, C, NIN] holds each IFM bit broadcast to a
-// 0/-1 word; w_planes [C, NIN, Mw] holds the weights bitsliced along M.
+// folding the C input channels in channel order, k channels a chain
+// step.  i_masks [P, C, NIN] holds each IFM bit broadcast to a 0/-1 word;
+// w_planes [C, NIN, Mw] holds the weights bitsliced along M.
 //
-// The netlist arrives as an instruction stream built from the
-// register-allocated schedule (_slot_schedule): one int4 per gate,
-//   x = op | truth_table << 4 | dst_slot << 12,  y/z/w = source slots,
-// where a source of -1 reads the all-zero word and -2 the all-ones word.
-// An INPUT instruction loads bus bit y: [0, k*NIN) weight planes of
-// chain step y / NIN, [k*NIN, 2k*NIN) IFM masks, then the accumulator.
-// One build serves every format, chain depth, rounding and cell library.
+// The netlists arrive as programs (repro_torch/kernels/bitslice_mac/
+// program.py; format, evaluators and the program loop in
+// bitslice_interp.cuh): the multiplier (build_mul_step) and the k-step
+// add-only chain (build_add_chain), the netlists of fused_mac.cuh, split
+// as fused_mac splits them and so bit-exact to the MAC chain.  One build
+// runs every format, chain depth, rounding and cell library, and no
+// program is capped but by shared memory, which the wrapper checks.
 //
-// What bounds it on the H100: 32-bit logic issue.  Every gate is one or
-// a few integer ops per 32 lanes; bytes are negligible beside them
-// (i_masks is read once per output-word column block).  The design
-// keeps the per-thread slot file and the accumulator in shared memory
-// (conflict-free: slot s of thread t lives at s * nthreads + t), stages
-// a C tile of weights and IFM masks in shared memory once per block,
-// and reads each instruction with a warp-uniform load.  Interpreting
-// costs a decode, operand loads and a store per gate; the generated
-// straight-line kernel (fused_mac.cuh) removes that overhead.
+// What bounds it on the H100: each (row, lane word) accumulator folds its
+// C channels in order, so a batch-1 layer has only P x Mw chains (98
+// warps at 14x14x512), and an interpreted gate is a chain of dependent
+// shared-memory accesses: operand loads, a run-time LUT3, a store the
+// next gate may load.  The design keeps every part of that chain short
+// and many gates in flight:
 //
-// Thread mapping: each thread owns one (row p, lane word w).  The C
-// reduction is a loop inside the block, so blocks are independent and
-// the ragged P, Mw and C edges are masked here (out-of-range operands
-// read as +0, the MAC identity).
+// * One chain warp a block by default (_build.launch_blocks), so a
+//   batch-1 layer's 98 chain warps land on 98 SMs.
+// * Both programs staged once a block into shared memory by cp.async,
+//   8 bytes a gate, read warp-uniformly (broadcast) with the next group's
+//   words loaded while the current group runs.
+// * Gates grouped by level: a group of up to 8 gates that read nothing
+//   written inside it issues all its operand loads, then all its LUT3s,
+//   then all its stores.
+// * The run-time LUT3 chosen by BSM_LUT (scripts/torch_interp_probe.py
+//   times the three): seven lop3 muxes over the truth table's masks, read
+//   from a 256-row table in shared memory.
+// * Multiply ahead, as fused_mac does: producer warps stage C tiles of
+//   weight and IFM-mask words with cp.async (zero past C, P and Mw: +0,
+//   the MAC identity) and interpret the multiplier into a ring of product
+//   planes under mbarriers; the chain warps interpret the add-only chain.
+//
+// Shared memory: the barriers, the programs, the mask table, two raw C
+// tiles, the product ring, a file of rows for each chain warp and each
+// producer warp (row r, lane l at r * 32 + l: conflict-free).
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
+
+#include "bitslice_interp.cuh"
+#include "fused_mac.cuh"   // hf:: mbarriers, cp.async, the producer barrier
+
+#ifndef BSM_LUT
+#define BSM_LUT bsi::LUT_MUX
+#endif
 
 namespace {
 
-enum : int {
-  OPI_INPUT = 1, OPI_NOT = 2, OPI_AND = 3, OPI_OR = 4, OPI_XOR = 5,
-  OPI_ANDN = 6, OPI_MUX = 7, OPI_LUT3 = 8,
+constexpr int S = hf::STAGES;        // ring slots of products
+constexpr int MAX_THREADS = 512;     // __launch_bounds__: 128 registers
+constexpr int PROBE_WORDS = 8;       // probe counters a warp
+
+// Byte offsets of the parts of a block's shared memory (mirrored by
+// repro_torch/kernels/bitslice_mac/kernel.py::smem_bytes).
+struct Layout {
+  size_t blob, masks, raw, ring, cfile, pfile, total;
 };
 
-__device__ __forceinline__ uint32_t lut3(uint32_t tt, uint32_t a, uint32_t b,
-                                         uint32_t c) {
-  // Minterm m of the truth table is the input combination a + 2b + 4c.
-  uint32_t v = 0;
-#pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    const uint32_t t = ((m & 1) ? a : ~a) & ((m & 2) ? b : ~b) &
-                       ((m & 4) ? c : ~c);
-    v |= ((tt >> m) & 1u) ? t : 0u;
-  }
-  return v;
+__host__ __device__ inline Layout layout(int blob_words, int add_rows,
+                                         int mul_rows, int nin, int nout,
+                                         int tp, int tw, int ct, int pw) {
+  const size_t ncw = (tp * tw + 31) / 32;
+  Layout L;
+  size_t o = 16 * S;                                  // full[S], empty[S]
+  L.blob = o;  o += 4 * (size_t)blob_words;           // a multiple of 16
+  L.masks = o; o += 256 * 8 * 4;
+  L.raw = o;   o += 4 * 2 * (size_t)(tw + tp) * (ct * nin + 1);
+  L.ring = o;  o += 4 * S * ncw * ct * nout * 32;
+  L.cfile = o; o += 4 * ncw * add_rows * 32;
+  L.pfile = o; o += 4 * pw * ncw * mul_rows * 32;
+  L.total = o;
+  return L;
 }
 
-__global__ void bitslice_mac_kernel(
-    const int32_t* __restrict__ i_masks, const int32_t* __restrict__ w_planes,
-    int32_t* __restrict__ out, const int4* __restrict__ prog, int n_instr,
-    const int32_t* __restrict__ out_desc, int nslots, int nin, int nout,
-    int k, int P, int C, int Mw, int ct) {
-  extern __shared__ uint32_t smem[];
-  const int tw = blockDim.x, tp = blockDim.y;
-  const int nthr = tw * tp;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * tw + tx;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   hf::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Copy C tile t (channels t*ct ...) into a raw slot, as fused_mac.cuh's
+// hf::stage_tile does for a compile-time NIN: row tx < tw holds lane word
+// w0 + tx of the channels' weight planes, row tw + ty the masks of IFM row
+// p0 + ty, column c*nin + b; zero past C, P and Mw.
+__device__ __forceinline__ void stage_tile(
+    uint32_t* raw, const int32_t* __restrict__ i_masks,
+    const int32_t* __restrict__ w_planes, int nin, int t, int ct, int pitch,
+    int P, int C, int Mw, int p0, int w0, int tp, int tw, int i, int n) {
+  const int W = ct * nin, c0n = t * ct * nin, Cn = C * nin;
+  {  // weights: element e -> (column e / tw, row e % tw)
+    int r = i / tw, q = i % tw;
+    const int dr = n / tw, dq = n % tw;
+    for (; r < W; r += dr, q += dq) {
+      if (q >= tw) { q -= tw; ++r; if (r >= W) break; }
+      const bool ok = c0n + r < Cn && w0 + q < Mw;
+      hf::cp_async4(raw + q * pitch + r,
+                    ok ? w_planes + (size_t)(c0n + r) * Mw + w0 + q
+                       : w_planes,
+                    ok);
+    }
+  }
+  {  // masks: element e -> (row e / W, column e % W)
+    int q = i / W, r = i % W;
+    const int dq = n / W, dr = n % W;
+    for (; q < tp; q += dq, r += dr) {
+      if (r >= W) { r -= W; ++q; if (q >= tp) break; }
+      const bool ok = p0 + q < P && c0n + r < Cn;
+      hf::cp_async4(raw + (tw + q) * pitch + r,
+                    ok ? i_masks + (size_t)(p0 + q) * Cn + c0n + r
+                       : i_masks,
+                    ok);
+    }
+  }
+}
+
+// The probe instantiation's counters (scripts/torch_interp_probe.py):
+// clock64() after each phase of a group, once that phase's results are
+// in registers (the clock read is predicated on a test of them).
+struct ClockProbe {
+  static constexpr bool SERIAL = true;
+  long long t = 0;
+  unsigned long long acc[PROBE_WORDS] = {};
+  __device__ __forceinline__ static long long clock_after(uint32_t dep) {
+    long long now;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.u32 p, %1, 0x5a5a5a5a;\n"
+        "@p mov.u64 %0, %%clock64;\n"
+        "@!p mov.u64 %0, 0;\n}\n"
+        : "=l"(now)
+        : "r"(dep)
+        : "memory");
+    return now;
+  }
+  __device__ __forceinline__ void start() { t = clock64(); }
+  __device__ __forceinline__ void mark(int phase, uint32_t dep) {
+    const long long now = clock_after(dep);
+    acc[phase] += (unsigned long long)(now - t);
+    t = now;
+  }
+};
+
+struct Args {
+  const int32_t* i_masks;
+  const int32_t* w_planes;
+  int32_t* out;
+  const int32_t* blob;                  // programs and output rows
+  int blob_words, add_n, add_rows, mul_off, mul_n, mul_rows, aout_off,
+      mout_off;
+  int nin, nout, k, P, C, Mw, tp, tw, ct, pw;
+  unsigned long long* probe;            // PROBE_WORDS a warp
+};
+
+// Chain warps: counters 0-3 the program's phases, 4 ring waits, 5 the
+// step's input and output copies, 7 chain steps.  Producer warps: 0-3 the
+// multiplier's phases, 4 waits (tile landed, barrier, empty slot), 5
+// staging issue, 6 product copies, 7 channels.
+template <int LUT, bool PROBE>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+    bitslice_mac_kernel(const Args A) {
+  using Probe = typename std::conditional<PROBE, ClockProbe,
+                                          bsi::NoProbe>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = layout(A.blob_words, A.add_rows, A.mul_rows, A.nin,
+                          A.nout, A.tp, A.tw, A.ct, A.pw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + S;
+  const uint32_t* blob = reinterpret_cast<const uint32_t*>(smem + L.blob);
+  uint4* masks = reinterpret_cast<uint4*>(smem + L.masks);
+  uint32_t* raw = reinterpret_cast<uint32_t*>(smem + L.raw);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem + L.ring);
+  const int nin = A.nin, nout = A.nout, k = A.k, C = A.C, ct = A.ct;
+  const int tp = A.tp, tw = A.tw;
+  const int nl = (tp * tw + 31) / 32 * 32;   // chain threads
+  const int ncw = nl / 32, np = A.pw * nl;   // chain warps, producers
+  const int nthr = nl + np;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int w0 = blockIdx.x * tw, p0 = blockIdx.y * tp;
-  const int pitch = ct * nin + 1;            // odd: conflict-free rows
-  uint32_t* wsm = smem;                      // [tw][pitch]
-  uint32_t* ism = wsm + tw * pitch;          // [tp][pitch]
-  uint32_t* file = ism + tp * pitch;         // [nslots + nout][nthr]
-  uint32_t* accf = file + nslots * nthr;
-  const int kn = k * nin;
+  const int T = (C + ct - 1) / ct;
+  const int pitch = ct * nin + 1;            // raw row, padded a word
+  const int raw_words = (tw + tp) * pitch;
 
-  for (int b = 0; b < nout; ++b) accf[b * nthr + tid] = 0u;  // +0
+  // Stage both programs, build the mask table, clear this thread's file.
+  for (int i = tid; i < A.blob_words / 4; i += nthr)
+    cp_async16(smem + L.blob + 16 * i, A.blob + 4 * i);
+  hf::cp_async_commit();
+  for (int i = tid; i < 256; i += nthr)
+    bsi::lut_masks(i, masks[2 * i], masks[2 * i + 1]);
+  const bool chain = tid < nl;
+  uint32_t* f = chain
+      ? reinterpret_cast<uint32_t*>(smem + L.cfile) +
+            (tid / 32) * A.add_rows * 32 + lane
+      : reinterpret_cast<uint32_t*>(smem + L.pfile) +
+            ((tid - nl) / 32) * A.mul_rows * 32 + lane;
+  f[bsi::ZERO_ROW * 32] = 0u;
+  f[bsi::ONES_ROW * 32] = ~0u;
+  if (chain)   // the accumulator rows: +0
+    for (int b = 0; b < nout; ++b) f[(bsi::FIRST_INPUT_ROW + b) * 32] = 0u;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      hf::mbar_init(&full[s], np);
+      hf::mbar_init(&empty[s], nl);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  hf::cp_async_wait<0>();
+  __syncthreads();
 
-  for (int c0 = 0; c0 < C; c0 += ct) {
-    __syncthreads();
-    for (int idx = tid; idx < ct * nin * tw; idx += nthr) {
-      const int t = idx % tw, cb = idx / tw;   // cb = cc * nin + b
-      const int c = c0 + cb / nin, w = w0 + t;
-      wsm[t * pitch + cb] = (c < C && w < Mw)
-          ? (uint32_t)w_planes[((size_t)c * nin + cb % nin) * Mw + w] : 0u;
-    }
-    for (int idx = tid; idx < tp * ct * nin; idx += nthr) {
-      const int r = idx / (ct * nin), cb = idx % (ct * nin);
-      const int p = p0 + r, c = c0 + cb / nin;
-      ism[r * pitch + cb] = (p < P && c < C)
-          ? (uint32_t)i_masks[((size_t)p * C + c) * nin + cb % nin] : 0u;
-    }
-    __syncthreads();
-    const int cend = min(ct, C - c0);
-    for (int cc = 0; cc < cend; cc += k) {
-      const uint32_t* xw = wsm + tx * pitch + cc * nin;
-      const uint32_t* yi = ism + ty * pitch + cc * nin;
-      for (int i = 0; i < n_instr; ++i) {
-        const int4 ins = __ldg(prog + i);
-        const int op = ins.x & 15;
-        uint32_t v;
-        if (op == OPI_INPUT) {
-          const int s = ins.y;
-          v = s < kn ? xw[s] : (s < 2 * kn ? yi[s - kn]
-                                           : accf[(s - 2 * kn) * nthr + tid]);
-        } else {
-          const uint32_t a = ins.y >= 0 ? file[ins.y * nthr + tid]
-                                        : (ins.y == -1 ? 0u : ~0u);
-          const uint32_t b = ins.z >= 0 ? file[ins.z * nthr + tid]
-                                        : (ins.z == -1 ? 0u : ~0u);
-          const uint32_t c = ins.w >= 0 ? file[ins.w * nthr + tid]
-                                        : (ins.w == -1 ? 0u : ~0u);
-          switch (op) {
-            case OPI_NOT: v = ~a; break;
-            case OPI_AND: v = a & b; break;
-            case OPI_OR: v = a | b; break;
-            case OPI_XOR: v = a ^ b; break;
-            case OPI_ANDN: v = a & ~b; break;
-            case OPI_MUX: v = c ^ (a & (b ^ c)); break;
-            default: v = lut3((uint32_t)(ins.x >> 4) & 255u, a, b, c); break;
-          }
+  Probe pr;
+  unsigned long long extra[3] = {0, 0, 0};   // probe: waits, copies, stage
+  long long steps = 0;
+  if constexpr (PROBE) pr.start();
+
+  if (chain) {
+    // ---- chain warps: fold the C channels in order, k a step ---------
+    const int li = tid < tp * tw ? tid : 0;
+    const int ty = li / tw, tx = li % tw;
+    const uint2* prog = reinterpret_cast<const uint2*>(blob);
+    const uint32_t* aout = blob + A.aout_off;
+    const int in_row = bsi::FIRST_INPUT_ROW + nout;   // p0 bit 0
+    for (int t = 0; t < T; ++t) {
+      const int s = t % S;
+      long long c0 = 0;
+      if constexpr (PROBE) c0 = clock64();
+      hf::mbar_wait(&full[s], (t / S) & 1);
+      if constexpr (PROBE) extra[0] += clock64() - c0;
+      const int cend = min(ct, (C - t * ct + k - 1) / k * k);
+      const uint32_t* rs = ring + (size_t)(s * ncw + tid / 32) * ct * nout *
+                                      32 + lane;
+      for (int cc = 0; cc < cend; cc += k) {
+        if constexpr (PROBE) c0 = clock64();
+        const uint32_t* src = rs + cc * nout * 32;
+        for (int i = 0; i < k * nout; ++i)
+          f[(in_row + i) * 32] = src[i * 32];
+        if constexpr (PROBE) {
+          extra[1] += ClockProbe::clock_after(f[in_row * 32]) - c0;
+          pr.start();
         }
-        file[(ins.x >> 12) * nthr + tid] = v;
+        bsi::run_program<LUT>(prog, A.add_n, f, masks, pr);
+        if constexpr (PROBE) c0 = clock64();
+        for (int b = 0; b < nout; ++b)
+          f[(bsi::FIRST_INPUT_ROW + b) * 32] = f[aout[b] * 32];
+        if constexpr (PROBE) {
+          extra[1] += ClockProbe::clock_after(f[bsi::FIRST_INPUT_ROW * 32]) -
+                      c0;
+          ++steps;
+        }
       }
-      for (int b = 0; b < nout; ++b) {
-        const int s = __ldg(out_desc + b);
-        accf[b * nthr + tid] = s >= 0 ? file[s * nthr + tid]
-                                      : (s == -1 ? 0u : ~0u);
+      hf::mbar_arrive(&empty[s]);
+    }
+    const int p = p0 + ty, w = w0 + tx;
+    if (tid < tp * tw && p < A.P && w < A.Mw) {
+      for (int b = 0; b < nout; ++b)
+        A.out[((size_t)b * A.P + p) * A.Mw + w] =
+            (int32_t)f[(bsi::FIRST_INPUT_ROW + b) * 32];
+    }
+  } else {
+    // ---- producer warps: stage C tiles and multiply ahead ------------
+    const int i = tid - nl;
+    const int g = i / nl, li = i % nl;     // channel group, chain lane
+    const int ll = li < tp * tw ? li : 0;
+    const int ty = ll / tw, tx = ll % tw;
+    const uint2* prog = reinterpret_cast<const uint2*>(blob + A.mul_off);
+    const uint32_t* mout = blob + A.mout_off;
+    const int y_row = bsi::FIRST_INPUT_ROW + nin;
+    stage_tile(raw, A.i_masks, A.w_planes, nin, 0, ct, pitch, A.P, C, A.Mw,
+               p0, w0, tp, tw, i, np);
+    hf::cp_async_commit();
+    for (int t = 0; t < T; ++t) {
+      const int s = t % S;
+      const uint32_t* rs = raw + (t & 1) * raw_words;
+      long long c0 = 0;
+      if constexpr (PROBE) c0 = clock64();
+      if (t + 1 < T)
+        stage_tile(raw + ((t + 1) & 1) * raw_words, A.i_masks, A.w_planes,
+                   nin, t + 1, ct, pitch, A.P, C, A.Mw, p0, w0, tp, tw, i,
+                   np);
+      hf::cp_async_commit();
+      if constexpr (PROBE) {
+        extra[2] += clock64() - c0;
+        c0 = clock64();
       }
+      hf::cp_async_wait<1>();     // tile t landed (this thread's part)
+      hf::producer_sync(np);      // ... and every producer's
+      hf::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+      if constexpr (PROBE) extra[0] += clock64() - c0;
+      // Products of every channel the chain reads: up to the tile's end
+      // rounded up to the chain depth (zero words past C).
+      const int cend = min(ct, (C - t * ct + k - 1) / k * k);
+      const uint32_t* xw = rs + tx * pitch;
+      const uint32_t* yi = rs + (tw + ty) * pitch;
+      uint32_t* pp = ring + (size_t)(s * ncw + li / 32) * ct * nout * 32 +
+                     lane;
+      for (int c = g; c < cend; c += A.pw) {
+        for (int b = 0; b < nin; ++b) {
+          f[(bsi::FIRST_INPUT_ROW + b) * 32] = xw[c * nin + b];
+          f[(y_row + b) * 32] = yi[c * nin + b];
+        }
+        if constexpr (PROBE) pr.start();
+        bsi::run_program<LUT>(prog, A.mul_n, f, masks, pr);
+        if constexpr (PROBE) c0 = clock64();
+        for (int b = 0; b < nout; ++b)
+          pp[(c * nout + b) * 32] = f[mout[b] * 32];
+        if constexpr (PROBE) {
+          extra[1] += clock64() - c0;
+          ++steps;
+        }
+      }
+      hf::mbar_arrive(&full[s]);
+      hf::producer_sync(np);      // every producer is done with rs
     }
   }
-  const int p = p0 + ty, w = w0 + tx;
-  if (p < P && w < Mw) {
-    for (int b = 0; b < nout; ++b)
-      out[((size_t)b * P + p) * Mw + w] = (int32_t)accf[b * nthr + tid];
+  if constexpr (PROBE) {
+    if (lane == 0) {
+      const int nw = nthr / 32;
+      unsigned long long* o =
+          A.probe + ((size_t)(blockIdx.y * gridDim.x + blockIdx.x) * nw +
+                     tid / 32) * PROBE_WORDS;
+      for (int j = 0; j < 4; ++j) o[j] = pr.acc[j];
+      o[4] = extra[0];
+      o[5] = chain ? extra[1] : extra[2];
+      o[6] = chain ? 0ull : extra[1];
+      o[7] = (unsigned long long)steps;
+    }
   }
+}
+
+template <int LUT, bool PROBE>
+int launch(const Args& a, void* stream) {
+  const Layout L = layout(a.blob_words, a.add_rows, a.mul_rows, a.nin,
+                          a.nout, a.tp, a.tw, a.ct, a.pw);
+  cudaError_t err = cudaFuncSetAttribute(
+      bitslice_mac_kernel<LUT, PROBE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = (1 + a.pw) * ((a.tp * a.tw + 31) / 32 * 32);
+  const dim3 grid((a.Mw + a.tw - 1) / a.tw, (a.P + a.tp - 1) / a.tp);
+  bitslice_mac_kernel<LUT, PROBE>
+      <<<grid, threads, L.total, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+Args make_args(const int32_t* i_masks, const int32_t* w_planes,
+               int32_t* out, const int32_t* blob, const int32_t* meta,
+               int nin, int nout, int k, int P, int C, int Mw, int tp, int tw,
+               int ct, int pw, unsigned long long* probe) {
+  // meta: blob_words, add_n, add_rows, mul_off, mul_n, mul_rows,
+  // aout_off, mout_off (repro_torch/kernels/bitslice_mac/kernel.py).
+  return Args{i_masks, w_planes, out,     blob,    meta[0], meta[1],
+              meta[2], meta[3],  meta[4], meta[5], meta[6], meta[7],
+              nin,     nout,     k,       P,       C,       Mw,
+              tp,      tw,       ct,      pw,      probe};
 }
 
 }  // namespace
 
-extern "C" size_t bitslice_mac_smem_bytes(int nslots, int nin, int nout,
-                                          int tp, int tw, int ct) {
-  return sizeof(uint32_t) *
-         ((size_t)(tw + tp) * (ct * nin + 1) +
-          (size_t)(nslots + nout) * tw * tp);
+extern "C" size_t bitslice_mac_smem_bytes(const int32_t* meta, int nin,
+                                          int nout, int tp, int tw, int ct,
+                                          int pw) {
+  return layout(meta[0], meta[2], meta[5], nin, nout, tp, tw, ct, pw).total;
 }
 
+// meta is a host array of the 8 program counts and offsets; blob is the
+// programs on the card.
 extern "C" int bitslice_mac_launch(const int32_t* i_masks,
                                    const int32_t* w_planes, int32_t* out,
-                                   const int4* prog, int n_instr,
-                                   const int32_t* out_desc, int nslots,
+                                   const int32_t* blob, const int32_t* meta,
                                    int nin, int nout, int k, int P, int C,
-                                   int Mw, int tp, int tw, int ct,
+                                   int Mw, int tp, int tw, int ct, int pw,
                                    void* stream) {
-  const size_t smem = bitslice_mac_smem_bytes(nslots, nin, nout, tp, tw, ct);
-  cudaError_t err = cudaFuncSetAttribute(
-      bitslice_mac_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 block(tw, tp);
-  const dim3 grid((Mw + tw - 1) / tw, (P + tp - 1) / tp);
-  bitslice_mac_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      i_masks, w_planes, out, prog, n_instr, out_desc, nslots, nin, nout, k,
-      P, C, Mw, ct);
-  return (int)cudaGetLastError();
+  return launch<BSM_LUT, false>(
+      make_args(i_masks, w_planes, out, blob, meta, nin, nout, k, P, C, Mw,
+                tp, tw, ct, pw, nullptr),
+      stream);
 }
+
+#ifdef BSM_PROBE
+// The measurement-only entry (built by scripts/torch_interp_probe.py):
+// probe holds PROBE_WORDS counters a warp.
+extern "C" int bitslice_mac_probe(const int32_t* i_masks,
+                                  const int32_t* w_planes, int32_t* out,
+                                  const int32_t* blob, const int32_t* meta,
+                                  int nin, int nout, int k, int P, int C,
+                                  int Mw, int tp, int tw, int ct, int pw,
+                                  void* stream, unsigned long long* probe) {
+  return launch<BSM_LUT, true>(
+      make_args(i_masks, w_planes, out, blob, meta, nin, nout, k, P, C, Mw,
+                tp, tw, ct, pw, probe),
+      stream);
+}
+#endif

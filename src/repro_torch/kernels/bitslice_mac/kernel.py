@@ -6,14 +6,16 @@ Port of ``repro.kernels.bitslice_mac.kernel.bitslice_mac_pallas``:
 * Weights are bitsliced along the M (output-channel) axis — the paper's
   "tile the M kernels by LANES"; IFM bits are broadcast to all lanes as
   0/-1 masks — the paper's "broadcast the IFM channel across kernels".
-* Channels advance ``c_unroll`` at a time through a fused K-step MAC
-  chain netlist (``build_mac_chain``) mapped to the ``tpu_vpu`` cell
-  library (NOT/AND/OR/XOR/ANDN/MUX).
-* The netlist runs as an int32 instruction stream (:func:`mac_program`)
-  that ``csrc/bitslice_mac.cu`` interprets; one build serves every
-  format, chain depth and rounding.  Each thread owns one (row, lane
-  word) and folds all C channels in order; see the source's header
-  note for what bounds it on the H100.
+* Channels advance ``c_unroll`` at a time through a k-step MAC chain,
+  split as the fused kernel splits it: the multiplier
+  (:func:`.program.mul_program`) runs ahead of the k-step add-only chain
+  (:func:`.program.add_program`), bit-exact to ``build_mac_chain``.
+* Both netlists run as encoded programs (:mod:`.program`) that
+  ``csrc/bitslice_mac.cu`` interprets: one build serves every format,
+  chain depth, rounding and cell library (``avx512`` by default).  Each
+  chain thread owns one (row, lane word) and folds all C channels in
+  order; producer warps stage the channels and multiply; see the
+  source's header note for what bounds it on the H100.
 
 Layouts:
     i_masks : [P, C, NIN]  int32, each element 0 or -1 (bit broadcast)
@@ -24,21 +26,21 @@ Layouts:
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
+import hashlib
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch import _build
-from repro_torch.core.circuit import (OP_AND, OP_ANDN, OP_INPUT, OP_LUT3,
-                                      OP_MUX, OP_NOT, OP_OR, OP_XOR)
-from repro_torch.core.codegen import _slot_schedule, lut3, make_torch_fn
+from repro_torch.core.codegen import make_torch_fn
 from repro_torch.core.fpcore import (build_add, build_cast, build_mac_chain,
                                      build_max, build_scale)
 from repro_torch.core.fpformat import RNE, FPFormat
 from repro_torch.core.opt import optimize_mapped
+
+from .program import LIB, Program, add_program, mul_program, run_program
 
 
 def _optimized_fn(graph, lib: str):
@@ -91,114 +93,16 @@ def scale_netlist_fn(fmt: FPFormat, k: int, lib: str = "tpu_vpu"):
 
 
 # ---------------------------------------------------------------------------
-# The instruction stream of the interpreter
+# The plain version
 # ---------------------------------------------------------------------------
-CONST0, CONST1 = -1, -2        # source operands that read 0 / all-ones
-
-
-@dataclasses.dataclass(frozen=True, eq=False)
-class MacProgram:
-    """A k-step MAC chain netlist encoded for ``csrc/bitslice_mac.cu``.
-
-    ``instr`` is ``[n, 4]`` int32, one row per gate in schedule order:
-    ``op | truth_table << 4 | dst_slot << 12`` (op codes are
-    ``circuit.OP_*``), then three source slots (``CONST0``/``CONST1``
-    for the constants, unused trailing sources ``CONST0``).  An INPUT
-    row's first source is a bus-bit index: ``[0, k*nin)`` weight planes
-    ``x{j}``, ``[k*nin, 2k*nin)`` IFM masks ``y{j}``, then the
-    accumulator bits.  ``out_desc`` names the slot (or constant) of
-    each output bit.
-    """
-    instr: np.ndarray
-    out_desc: np.ndarray
-    nslots: int
-    nin: int
-    nout: int
-    k: int
-
-
-def encode_program(graph, k: int, nin: int) -> MacProgram:
-    """Encode a mapped MAC-chain netlist as an interpreter program."""
-    steps, nslots, out_wires = _slot_schedule(graph)
-    nodes = graph.nodes
-    rows = []
-    for nid, slot, cs, _ in steps:
-        n = nodes[nid]
-        if n.op == OP_INPUT:
-            name, bit = n.aux
-            if name == "acc":
-                idx = 2 * k * nin + bit
-            else:
-                j = int(name[1:])
-                idx = (j if name[0] == "x" else k + j) * nin + bit
-            rows.append((OP_INPUT | slot << 12, idx, CONST0, CONST0))
-            continue
-        children = [ch for ch in (n.a, n.b, n.c) if ch >= 0]
-        srcs = [s if s >= 0 else (CONST1 if nodes[ch].aux else CONST0)
-                for s, ch in zip(cs, children)]
-        srcs += [CONST0] * (3 - len(srcs))
-        tt = n.aux if n.op == OP_LUT3 else 0
-        rows.append((n.op | tt << 4 | slot << 12, *srcs))
-    out_desc = [s if kind == "slot" else (CONST1 if s else CONST0)
-                for kind, s in out_wires["out"]]
-    return MacProgram(np.asarray(rows, np.int32).reshape(-1, 4),
-                      np.asarray(out_desc, np.int32), nslots, nin,
-                      len(out_desc), k)
-
-
-@functools.lru_cache(maxsize=None)
-def mac_program(fmt: FPFormat, k: int, extended: bool, rounding: str,
-                lib: str = "tpu_vpu") -> MacProgram:
-    """The interpreter program of the cached chain netlist."""
-    _, mapped = mac_chain_netlist_fn(fmt, k, extended, rounding, lib)
-    return encode_program(mapped, k, fmt.nbits)
-
-
-def run_program(prog: MacProgram, xs, ys, acc):
-    """Plain torch execution of one chain step of ``prog``: ``xs``/``ys``
-    are k lists of NIN lane-word tensors, ``acc`` NOUT of them; returns
-    the NOUT output tensors.  The same decode as the CUDA interpreter,
-    so the CPU tests check the encoding itself."""
-    inputs = [t for bus in xs for t in bus] + \
-        [t for bus in ys for t in bus] + list(acc)
-    zeros = torch.zeros_like(acc[0])
-    ones = ~zeros
-    regs: list = [None] * prog.nslots
-
-    def rd(s):
-        return regs[s] if s >= 0 else (ones if s == CONST1 else zeros)
-
-    for head, a, b, c in prog.instr.tolist():
-        op, tt, dst = head & 15, (head >> 4) & 255, head >> 12
-        if op == OP_INPUT:
-            v = inputs[a]
-        elif op == OP_NOT:
-            v = ~rd(a)
-        elif op == OP_MUX:
-            s, x, y = rd(a), rd(b), rd(c)
-            v = y ^ (s & (x ^ y))
-        elif op == OP_AND:
-            v = rd(a) & rd(b)
-        elif op == OP_OR:
-            v = rd(a) | rd(b)
-        elif op == OP_XOR:
-            v = rd(a) ^ rd(b)
-        elif op == OP_ANDN:
-            v = rd(a) & ~rd(b)
-        elif op == OP_LUT3:
-            v = lut3(tt, rd(a), rd(b), rd(c), zeros)
-        else:  # pragma: no cover
-            raise ValueError(f"bad op {op}")
-        regs[dst] = v
-    return [rd(s) for s in prog.out_desc.tolist()]
-
-
 def _bitslice_mac_torch(i_masks, w_planes, *, fmt: FPFormat, extended: bool,
-                        rounding: str, c_unroll: int | None = None):
-    """Plain version: the chain program stepped over C/c_unroll channel
-    groups with one torch op per gate.  C is padded to a multiple of
-    ``c_unroll`` with +0 codes — the all-zero planes — which are the
-    MAC identity."""
+                        rounding: str, c_unroll: int | None = None,
+                        lib: str = LIB):
+    """Plain version: the kernel's two programs run by :func:`run_program`
+    — the multiplier over every channel at once (it does not read the
+    accumulator), then the add-only chain stepped over C/c_unroll channel
+    groups.  C is padded to a multiple of ``c_unroll`` with +0 codes — the
+    all-zero planes — which are the MAC identity."""
     P, C, nin = i_masks.shape
     Mw = w_planes.shape[2]
     k = _build.chain_depth(C, c_unroll)
@@ -207,37 +111,57 @@ def _bitslice_mac_torch(i_masks, w_planes, *, fmt: FPFormat, extended: bool,
         i_masks = F.pad(i_masks, (0, 0, 0, pad))
         w_planes = F.pad(w_planes, (0, 0, 0, 0, 0, pad))
         C += pad
-    prog = mac_program(fmt, k, extended, rounding)
+    mul = mul_program(fmt, extended, rounding, lib)
+    add = add_program(fmt, k, extended, rounding, lib)
+    prods = run_program(mul, {
+        "x0": [w_planes[:, b, None, :] for b in range(nin)],      # [C,1,Mw]
+        "y0": [i_masks[:, :, b].T[:, :, None] for b in range(nin)]})
+    prods = torch.stack([p.expand(C, P, Mw) for p in prods], 1)
     acc = [torch.zeros((P, Mw), dtype=torch.int32, device=i_masks.device)
-           for _ in range(prog.nout)]
+           for _ in range(add.nout)]
     for s in range(0, C, k):
-        xs = [[w_planes[s + j, b][None, :] for b in range(nin)]
-              for j in range(k)]                                  # [1, Mw]
-        ys = [[i_masks[:, s + j, b][:, None] for b in range(nin)]
-              for j in range(k)]                                  # [P, 1]
-        acc = [o.expand(P, Mw) for o in run_program(prog, xs, ys, acc)]
+        ins = {"acc": acc}
+        for j in range(k):
+            ins[f"p{j}"] = list(prods[s + j])
+        acc = [o.expand(P, Mw) for o in run_program(add, ins)]
     return torch.stack(acc).contiguous()
 
 
 # ---------------------------------------------------------------------------
 # The CUDA kernel
 # ---------------------------------------------------------------------------
-def build_job() -> tuple[str, str]:
-    """The ``(name, source)`` pair :func:`_build.build` compiles."""
-    return "bitslice_mac", (_build.CSRC / "bitslice_mac.cu").read_text()
+def build_job(defines: str = "") -> tuple[str, str]:
+    """The ``(name, source)`` pair :func:`_build.build` compiles;
+    ``defines`` (``#define`` lines put first) builds a variant under its
+    own name (``scripts/torch_interp_probe.py``)."""
+    src = (_build.CSRC / "bitslice_mac.cu").read_text()
+    if not defines:
+        return "bitslice_mac", src
+    tag = hashlib.sha256(defines.encode()).hexdigest()[:8]
+    return f"bitslice_mac_{tag}", defines + "\n" + src
 
 
 # The bound C entry, once a library is loaded (built at first launch, or
 # ahead of time through ``repro_torch.kernels.build_kernels``).
 _BOUND: dict = {}
 
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int32)]
+         + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+
+
+def bind(library: _build.Library, probe: bool = False):
+    """The launch entry of a built library: ``bitslice_mac_launch`` or,
+    with ``probe``, the measurement-only ``bitslice_mac_probe`` (one more
+    pointer: 8 counters a warp)."""
+    if probe:
+        return _build.bind(library.lib, "bitslice_mac_probe",
+                           _ARGS + [ctypes.c_void_p])
+    return _build.bind(library.lib, "bitslice_mac_launch", _ARGS)
+
 
 def load(library: _build.Library) -> None:
     """Bind the C entry of a built ``bitslice_mac`` library."""
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    _BOUND["launch"] = _build.bind(
-        library.lib, "bitslice_mac_launch",
-        [vp, vp, vp, vp, ci, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp])
+    _BOUND["launch"] = bind(library)
 
 
 def _launch_fn():
@@ -246,19 +170,97 @@ def _launch_fn():
     return _BOUND["launch"]
 
 
+class DevicePrograms:
+    """The multiplier and the add-only chain of one (format, chain
+    depth, extended, rounding, library) on one device: ``blob`` holds
+    both programs' words and output rows (each part padded to 16 bytes,
+    the kernel stages it with 16-byte copies), ``meta`` their counts and
+    offsets in words, as the C entry reads them."""
+
+    def __init__(self, mul: Program, add: Program, device):
+        parts, offs = [], []
+        for arr in (add.words.ravel(), mul.words.ravel(), add.out_rows,
+                    mul.out_rows):
+            offs.append(sum(len(p) for p in parts))
+            parts.append(np.pad(arr, (0, (-len(arr)) % 4)))
+        blob = np.concatenate(parts).astype(np.int32)
+        self.mul, self.add = mul, add
+        self.blob = torch.from_numpy(blob).to(device)
+        self.meta_list = [len(blob), add.n, add.nrows, offs[1], mul.n,
+                          mul.nrows, offs[2], offs[3]]
+        self.meta = (ctypes.c_int32 * 8)(*self.meta_list)
+
+    @property
+    def program_bytes(self) -> int:
+        return 4 * self.meta_list[0]
+
+
 @functools.lru_cache(maxsize=None)
-def _device_program(fmt, k, extended, rounding, device: str):
-    prog = mac_program(fmt, k, extended, rounding)
-    return (prog, torch.from_numpy(prog.instr).to(device).contiguous(),
-            torch.from_numpy(prog.out_desc).to(device).contiguous())
+def device_programs(fmt: FPFormat, k: int, extended: bool, rounding: str,
+                    lib: str, device: str) -> DevicePrograms:
+    return DevicePrograms(mul_program(fmt, extended, rounding, lib),
+                          add_program(fmt, k, extended, rounding, lib),
+                          device)
 
 
-def smem_bytes(nslots: int, nin: int, nout: int, p_block: int,
-               m_block: int, c_block: int) -> int:
+STAGES = 3          # ring slots of products (hf::STAGES)
+
+
+def smem_bytes(progs: DevicePrograms, nin: int, p_block: int,
+               m_block: int, ct: int, pw: int) -> int:
     """Dynamic shared memory of one interpreter block (mirrors
-    ``bitslice_mac_smem_bytes`` in the source)."""
-    return 4 * ((m_block + p_block) * (c_block * nin + 1)
-                + (nslots + nout) * m_block * p_block)
+    ``layout`` in the source): the ring's barriers, both programs, the
+    256-row LUT3 mask table, two raw C tiles, the product ring, and a
+    file of rows for each chain warp and each producer warp."""
+    ncw = -(-p_block * m_block // 32)
+    nout = progs.add.nout
+    return (16 * STAGES + progs.program_bytes + 256 * 32
+            + 4 * 2 * (m_block + p_block) * (ct * nin + 1)
+            + 4 * STAGES * ncw * ct * nout * 32
+            + 4 * ncw * progs.add.nrows * 32
+            + 4 * pw * ncw * progs.mul.nrows * 32)
+
+
+def block_threads(p_block: int, m_block: int,
+                  pw: int = _build.INTERP_PRODUCERS) -> int:
+    """Threads of one interpreter block: the chain warps over
+    ``p_block x m_block`` (row, lane word) chains and ``pw`` producer
+    warps for each."""
+    return (1 + pw) * (-(-p_block * m_block // 32) * 32)
+
+
+def ring_slot(progs: DevicePrograms, nin: int, p_block: int, m_block: int,
+              c_block: int, k: int, pw: int) -> int:
+    """Channels of a ring slot: ``c_block`` rounded up to the chain depth
+    (``_build.c_tile``), less whole chain steps while the block would not
+    fit in shared memory.  Values never depend on it."""
+    ct = _build.c_tile(c_block, k)
+    while ct > k and smem_bytes(progs, nin, p_block, m_block, ct,
+                                pw) > _build.MAX_SMEM:
+        ct -= k
+    return ct
+
+
+def launch(fn, i_masks, w_planes, out, progs: DevicePrograms, k: int,
+           p_block: int, m_block: int, ct: int, pw: int, probe=None) -> None:
+    """Check a block of these parameters and launch ``fn`` (a bound C
+    entry) on the current stream; raises before launching what the card
+    would refuse.  ``probe``: the probe entry's counter tensor."""
+    P, C, nin = i_masks.shape
+    Mw = w_planes.shape[2]
+    smem = smem_bytes(progs, nin, p_block, m_block, ct, pw)
+    _build.check_blocks(p_block, m_block, ct, smem,
+                        threads=block_threads(p_block, m_block, pw),
+                        max_threads=_build.INTERP_MAX_THREADS,
+                        what=f"{progs.program_bytes} B of programs")
+    args = [_build.ptr(i_masks), _build.ptr(w_planes), _build.ptr(out),
+            _build.ptr(progs.blob), progs.meta, nin, progs.add.nout, k, P,
+            C, Mw, p_block, m_block, ct, pw, _build.stream_ptr()]
+    if probe is not None:
+        args.append(_build.ptr(probe))
+    with torch.cuda.device(i_masks.device):
+        code = fn(*args)
+    _build.check(code, "bitslice_mac")
 
 
 def bitslice_mac_cuda(i_masks: torch.Tensor, w_planes: torch.Tensor, *,
@@ -271,8 +273,9 @@ def bitslice_mac_cuda(i_masks: torch.Tensor, w_planes: torch.Tensor, *,
     w_planes [C, NIN, Mw] -> [NOUT, P, Mw] int32.
 
     On CUDA tensors this launches ``csrc/bitslice_mac.cu`` (blocks of
-    ``m_block x p_block`` threads, C tiles of ``c_block`` channels
-    rounded up to a multiple of the chain depth; missing values from
+    ``m_block x p_block`` chain threads and ``_build.INTERP_PRODUCERS``
+    producer warps a chain warp, ring slots of ``c_block`` channels
+    (:func:`ring_slot`); missing values from
     :func:`_build.launch_blocks`); on CPU tensors it runs the plain
     version.  Any shape is accepted — the kernel masks the ragged P, Mw
     and C edges — and the output never depends on the blocks.
@@ -289,21 +292,14 @@ def bitslice_mac_cuda(i_masks: torch.Tensor, w_planes: torch.Tensor, *,
     _build.require_cuda(i_masks, w_planes)
     blk = _build.launch_blocks(P, C, Mw, p_block=p_block, m_block=m_block,
                                c_block=c_block, c_unroll=c_unroll)
-    k, p_block, m_block = blk["c_unroll"], blk["p_block"], blk["m_block"]
-    prog, instr, out_desc = _device_program(fmt, k, extended, rounding,
-                                            str(i_masks.device))
-    ct = _build.c_tile(blk["c_block"], k)
-    smem = smem_bytes(prog.nslots, nin, prog.nout, p_block, m_block, ct)
-    _build.check_blocks(p_block, m_block, ct, smem)
-    fn = _launch_fn()
-    out = torch.empty((prog.nout, P, Mw), dtype=torch.int32,
+    k = blk["c_unroll"]
+    progs = device_programs(fmt, k, extended, rounding, LIB,
+                            str(i_masks.device))
+    out = torch.empty((progs.add.nout, P, Mw), dtype=torch.int32,
                       device=i_masks.device)
-    with torch.cuda.device(i_masks.device):
-        code = fn(_build.ptr(i_masks), _build.ptr(w_planes), _build.ptr(out),
-                  _build.ptr(instr), len(prog.instr), _build.ptr(out_desc),
-                  prog.nslots, nin, prog.nout, k, P, C, Mw, p_block,
-                  m_block, ct, _build.stream_ptr())
-    _build.check(code, "bitslice_mac")
+    p, m, pw = blk["p_block"], blk["m_block"], _build.INTERP_PRODUCERS
+    launch(_launch_fn(), i_masks, w_planes, out, progs, k, p, m,
+           ring_slot(progs, nin, p, m, blk["c_block"], k, pw), pw)
     bitslice_mac_cuda.launches += 1
     return out
 

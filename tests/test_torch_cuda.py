@@ -1,5 +1,6 @@
 """The port's three CUDA kernels against their plain versions, and the
-fused emitter's C body against ``eval_netlist``.
+fused emitter's C body against ``eval_netlist``.  The interpreter's C++
+core is checked on the CPU in ``test_torch_interp.py``.
 
 The ``gpu`` tests need a card and skip without one (each test decides,
 through the ``cuda`` fixture); run them on the card with
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import _build
 from repro_torch.core.codegen import eval_netlist
 from repro_torch.core.fpformat import (HOBFLOPS_FORMATS, RNE, RTZ, FPFormat,
                                        StorageFormat)
@@ -99,6 +101,58 @@ def test_kernels_block_independent(cuda):
     torch.cuda.synchronize()
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
+
+
+@pytest.mark.gpu
+def test_interpreter_hobflops16_extended(cuda):
+    """The widest format with the extended accumulator (e5m21), chain
+    depth 4 and a ragged C against the plain version."""
+    fmt = FPFormat(5, 10)
+    rng = np.random.default_rng(16)
+    i_masks, w_planes = _operands(rng, fmt, 35, 22, 2)
+    kw = dict(fmt=fmt, extended=True, c_unroll=4)
+    want = interp.bitslice_mac_cuda(i_masks, w_planes, **kw)
+    got = interp.bitslice_mac_cuda(i_masks.to(cuda), w_planes.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_interpreter_one_build_for_every_netlist(cuda):
+    """Several formats, depths, roundings and both accumulators in one
+    process run through one ``bitslice_mac`` library, built once: the
+    programs are data, not code."""
+    rng = np.random.default_rng(8)
+    for fmt, k, rounding, extended in ((F8, 1, RNE, False),
+                                       (F9, 4, RTZ, False),
+                                       (F9, 3, RNE, True),
+                                       (FPFormat(5, 10), 2, RNE, False)):
+        i_masks, w_planes = _operands(rng, fmt, 9, 7, 1)
+        kw = dict(fmt=fmt, c_unroll=k, rounding=rounding, extended=extended)
+        got = interp.bitslice_mac_cuda(i_masks.to(cuda), w_planes.to(cuda),
+                                       **kw)
+        assert torch.equal(got.cpu(),
+                           interp.bitslice_mac_cuda(i_masks, w_planes, **kw))
+    libs = [lib for lib in _build._LOADED.values()
+            if lib.name.startswith("bitslice_mac")]
+    assert len(libs) == 1 and libs[0].name == "bitslice_mac"
+    assert interp._BOUND["launch"] is not None
+
+
+@pytest.mark.gpu
+def test_interpreter_program_too_large_raises_before_launch(cuda):
+    """A chain program larger than a block's shared memory (hobflops16,
+    extended accumulator, 24 steps a chain) raises before any launch;
+    it is never truncated."""
+    fmt = FPFormat(5, 10)
+    i_masks, w_planes = _operands(np.random.default_rng(0), fmt, 4, 24, 1)
+    n0 = interp.bitslice_mac_cuda.launches
+    with pytest.raises(ValueError, match="B of programs"):
+        interp.bitslice_mac_cuda(i_masks.to(cuda), w_planes.to(cuda),
+                                 fmt=fmt, extended=True, c_unroll=24)
+    assert interp.bitslice_mac_cuda.launches == n0
+    progs = interp.device_programs(fmt, 24, True, RNE, "avx512", "cuda")
+    assert progs.program_bytes + 4 * progs.add.nrows * 32 > _build.MAX_SMEM
 
 
 @pytest.mark.gpu
@@ -316,15 +370,43 @@ def test_launch_blocks_are_checked_before_launch():
     """A block the card would refuse (too many threads, too much shared
     memory, an empty block) raises in Python; the C tile rounds up to
     the chain depth."""
-    from repro_torch import _build
     assert _build.c_tile(32, 4) == 32 and _build.c_tile(7, 3) == 9
     assert _build.c_tile(1, 4) == 4
     _build.check_blocks(4, 16, 32, 48 * 1024)
     for p, m, smem in ((33, 32, 0), (0, 16, 0), (4, 16, 232449)):
         with pytest.raises(ValueError, match="blocks p="):
             _build.check_blocks(p, m, 32, smem)
-    need = interp.smem_bytes(165, 11, 12, 4, 16, 32)
-    assert need == 4 * (20 * (32 * 11 + 1) + 177 * 64)
+    # The interpreter: barriers, both programs, the LUT3 mask table, two
+    # raw C tiles, a 3-slot product ring and a file of rows for each
+    # chain warp and producer warp; (1 + pw) warps a chain warp.
+    # Both programs' words (8 padding gates each) and output rows, each
+    # part padded to 16 bytes.
+    progs = interp.device_programs(F9, 4, False, RNE, "avx512", "cpu")
+    nin, nout = F9.nbits, F9.mult_out().nbits
+
+    def pad4(n):
+        return -(-n // 4) * 4
+
+    assert progs.program_bytes == 4 * (
+        pad4(2 * (progs.add.n + 8)) + pad4(2 * (progs.mul.n + 8))
+        + 2 * pad4(nout))
+    assert interp.smem_bytes(progs, nin, 4, 16, 8, 2) == \
+        48 + progs.program_bytes + 256 * 32 + 4 * 2 * 20 * (8 * nin + 1) \
+        + 4 * 3 * 2 * 8 * nout * 32 + 4 * 2 * progs.add.nrows * 32 \
+        + 4 * 2 * 2 * progs.mul.nrows * 32
+    # A ring slot shrinks by chain steps until the block fits.
+    assert interp.ring_slot(progs, nin, 2, 16, 7, 4, 1) == 8
+    progs2 = interp.device_programs(F9, 2, False, RNE, "avx512", "cpu")
+    slot = interp.ring_slot(progs2, nin, 2, 32, 64, 2, 1)
+    assert slot % 2 == 0 and slot < 64
+    assert interp.smem_bytes(progs2, nin, 2, 32, slot, 1) <= \
+        _build.MAX_SMEM < interp.smem_bytes(progs2, nin, 2, 32, slot + 2, 1)
+    assert interp.block_threads(4, 16, 2) == 192
+    assert interp.block_threads(3, 7, 1) == 64
+    with pytest.raises(ValueError, match="blocks p="):
+        _build.check_blocks(9, 32, 8, 0,
+                            threads=interp.block_threads(9, 32, 1),
+                            max_threads=_build.INTERP_MAX_THREADS)
     # The fused ring: 3 barrier pairs, 2 slots of staged words and 3 of
     # product planes (64 chain lanes).
     assert fused.smem_bytes(11, 12, 4, 16, 32) == \

@@ -23,6 +23,7 @@ from repro_torch.core.fused_backend import (RegisterFileOverflow,
                                             lower_netlist)
 from repro_torch.core.fused_backend import kernel as fused
 from repro_torch.kernels.bitslice_mac import kernel as interp
+from repro_torch.kernels.bitslice_mac.program import encode, run_program
 
 F8 = HOBFLOPS_FORMATS["hobflops8"]
 F9 = HOBFLOPS_FORMATS["hobflops9"]
@@ -88,17 +89,18 @@ def test_make_torch_fn_matches_eval_netlist(name):
     (F8, 1, False, RNE), (F9, 4, False, RTZ), (F8, 2, True, RNE)])
 def test_interpreter_program_matches_eval_netlist(fmt, k, extended,
                                                   rounding):
-    """One chain step of the encoded instruction stream, run by the
-    interpreter's plain version, equals the netlist it encodes."""
+    """One chain step of the MAC chain netlist, encoded as an interpreter
+    program and run by the interpreter's plain version, equals the
+    netlist it encodes."""
     _, g = interp.mac_chain_netlist_fn(fmt, k, extended, rounding)
-    prog = interp.mac_program(fmt, k, extended, rounding)
+    buses = ["acc"] + [f"x{j}" for j in range(k)] + [f"y{j}" for j in
+                                                      range(k)]
+    prog = encode(g, buses)
     assert prog.nout == fmt.mult_out(extended).nbits
     inputs = _rand_inputs(g, np.random.default_rng(k))
     want = tcg.eval_netlist(g, inputs)["out"]
-    t = {bus: torch.from_numpy(v) for bus, v in inputs.items()}
-    got = interp.run_program(
-        prog, [list(t[f"x{j}"]) for j in range(k)],
-        [list(t[f"y{j}"]) for j in range(k)], list(t["acc"]))
+    got = run_program(prog, {bus: list(torch.from_numpy(v))
+                             for bus, v in inputs.items()})
     np.testing.assert_array_equal(
         torch.stack([o.expand(3, 5) for o in got]).numpy(), want)
 
