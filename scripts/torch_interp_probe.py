@@ -23,17 +23,20 @@ conv layers (3x3: P=196, C=4608, Mw=16; 1x1: C=512) in hobflops9:
    (LUT3 cells) against ``tpu_vpu`` ones (two-input cells, twice the
    gates).  Every variant is checked against the default's planes.
 4. **Where a MAC step's cycles go.**  The probe instantiation (built with
-   ``BSM_PROBE``) stamps ``clock64()`` after each phase of every group,
-   once the phase's results are in registers, so the phases run one
-   after another: program fetch, operand loads, evaluation, stores; and
+   ``BSM_PROBE``) stamps ``clock64()`` in each warp's lane 0 after each
+   phase of its slots, once the phase's results are in registers, so the
+   phases run one after another: program fetch, operand loads,
+   evaluation, stores (the wait for the group's other lanes falls in the
+   next fetch); and
    per chain step the ring waits and the input and output copies; for
    the producer warps the multiplier's phases, their waits, staging and
    product copies.  A serialised account: its sum is above the
    pipelined kernel's own cycles, which are printed beside it.
-5. **Launch defaults.**  A sweep of chain warps a block (``p_block``),
-   ring slot channels (``c_block``) and producer warps a chain warp at
-   both layers, batch 1 and 4; ``_build.launch_blocks``' interpreter
-   defaults and ``_build.INTERP_PRODUCERS`` cite it.
+5. **Launch defaults.**  A sweep of chains a block (``p_block x
+   m_block``: 4 chains, 8 lanes each, are one chain warp), ring slot
+   channels (``c_block``) and producer warps a chain warp at both
+   layers, batch 1 and 4; ``_build.launch_blocks``' interpreter defaults
+   and ``_build.INTERP_PRODUCERS`` cite it.
 
 Everything is written to ``chiprun_out/interp_probe.json`` too.  The SM
 clock is read with ``nvidia-smi`` after the timings.
@@ -217,9 +220,8 @@ def main() -> int:
                           for lib, pr in progs.items()}
 
     def run(fn, ops, pr, p_block, m_block, c_block, pw, out, cnt=None):
-        ct = interp.ring_slot(pr, fmt.nbits, p_block, m_block, c_block, k,
-                              pw)
-        interp.launch(fn, *ops, out, pr, k, p_block, m_block, ct, pw, cnt)
+        interp.launch(fn, *ops, out, pr, k, p_block, m_block, c_block, pw,
+                      cnt)
 
     layers = {}
     for batch in (1, 4):
@@ -273,7 +275,8 @@ def main() -> int:
         ops = layers[(name, 1)]
         tp, tw, pw = dflt["p_block"], dflt["m_block"], dflt["pw"]
         grid = -(-(HW * HW) // tp) * -(-MW // tw)
-        ncw = -(-tp * tw // 32)
+        gs = interp.lanes_a_chain(tp, tw, pw)
+        ncw = interp.padded_chains(tp, tw, gs) * gs // 32
         nw = ncw * (1 + pw)
         cnt = torch.zeros(grid * nw * 8, dtype=torch.int64, device="cuda")
         out = new_out(ops)
@@ -308,10 +311,10 @@ def main() -> int:
 
     # 5. launch defaults
     result["sweep"] = []
-    for warps in (1, 2, 4):
-        for c_block in (4, 8, 16):
+    for p_block, m_block in ((1, 4), (1, 8), (1, 16), (2, 16)):
+        for c_block in (4, 8):
             for pw in (1, 2):
-                cfg = dict(p_block=warps * 32 // MW, m_block=MW,
+                cfg = dict(p_block=p_block, m_block=m_block,
                            c_block=c_block, pw=pw)
                 row = dict(cfg)
                 for (name, batch), ops in layers.items():
@@ -334,8 +337,8 @@ def main() -> int:
                 row["stack_b1"] = row["3x3_b1"] + 2 * row["1x1_b1"]
                 row["stack_b4"] = row["3x3_b4"] + 2 * row["1x1_b4"]
                 result["sweep"].append(row)
-                print(f"sweep chain warps {warps} c_block {c_block} "
-                      f"producers {pw}: 3x3 b1 {row['3x3_b1']:.3f} b4 "
+                print(f"sweep p_block {p_block} m_block {m_block} "
+                      f"c_block {c_block} producers {pw}: 3x3 b1 {row['3x3_b1']:.3f} b4 "
                       f"{row['3x3_b4']:.3f}; 1x1 b1 {row['1x1_b1']:.3f} b4 "
                       f"{row['1x1_b4']:.3f}; stack b1 {row['stack_b1']:.3f} "
                       f"b4 {row['stack_b4']:.3f} ms")

@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Hopper launch defaults of both MAC kernels (see launch_blocks).
 # Values never depend on them.
-CHAIN_THREADS = 32         # chain threads a block: one chain warp
+CHAIN_THREADS = 32         # fused_mac: chains a block, one chain warp
+INTERP_CHAINS = 16         # bitslice_mac: chains a block, 8 lanes each
 FUSED_PRODUCERS = 3        # fused_mac: producer warps a chain warp
 INTERP_PRODUCERS = 1       # bitslice_mac: producer warps a chain warp
 M_BLOCK = 32               # lane words a block at most: one warp per row
@@ -40,7 +41,7 @@ C_BLOCK = 8                # bitslice_mac: channels of a ring slot
 FUSED_C_BLOCK = 8          # fused_mac: channels of a ring slot
 CHAIN_DEPTH = 4            # MAC steps a chain body is asked to take
 MAX_THREADS = 1024         # threads one block may hold
-INTERP_MAX_THREADS = 512   # bitslice_mac's __launch_bounds__
+INTERP_MAX_THREADS = 1024  # bitslice_mac's __launch_bounds__
 MAX_SMEM = 232448          # bytes of shared memory one block may use
 
 
@@ -164,10 +165,11 @@ def launch_blocks(P: int, C: int, Mw: int, *, p_block: int | None = None,
     """Launch parameters of either MAC kernel for ``P`` rows, ``C``
     channels and ``Mw`` lane words — the one place their defaults live.
 
-    A block covers ``m_block x p_block`` (lane word, row) chains: up to
-    :data:`M_BLOCK` lane words and :data:`CHAIN_THREADS` chain threads —
-    one chain warp a block, so a batch-1 layer's 98 chain warps land on
-    98 SMs — beside producer warps of their own.  ``c_block`` channels
+    A block covers ``m_block x p_block`` (lane word, row) chains, up to
+    :data:`M_BLOCK` lane words, beside producer warps of their own: for
+    ``fused_mac`` :data:`CHAIN_THREADS` chains, one chain warp — so a
+    batch-1 layer's 98 chain warps land on 98 SMs; for ``bitslice_mac``
+    :data:`INTERP_CHAINS` chains, 8 lanes a chain.  ``c_block`` channels
     are a ring slot (:data:`C_BLOCK` for ``bitslice_mac``,
     :data:`FUSED_C_BLOCK` for ``fused_mac``).  Given values are kept;
     missing ones take these defaults clamped to the problem.
@@ -175,7 +177,8 @@ def launch_blocks(P: int, C: int, Mw: int, *, p_block: int | None = None,
     """
     fused = {"bitslice_mac": False, "fused_mac": True}[kernel]
     m = m_block or min(M_BLOCK, Mw)
-    return {"p_block": p_block or min(max(1, CHAIN_THREADS // m), P),
+    chains = CHAIN_THREADS if fused else INTERP_CHAINS
+    return {"p_block": p_block or min(max(1, chains // m), P),
             "m_block": m,
             "c_block": c_block or min(FUSED_C_BLOCK if fused else C_BLOCK,
                                       C),

@@ -7,15 +7,18 @@
 // repro_torch/kernels/bitslice_mac/program.py, which documents the format
 // and the schedule; the two must agree on every constant here.
 //
-// A program runs over a file of rows, one 32-bit word a row for each of
-// the 32 lanes of a warp (row r of a lane at r * LANES): row 0 holds 0,
-// row 1 all ones, rows 2.. the program's input buses, then temporaries.
-// Every gate is a LUT3 over three rows, written to a fourth, 8 bytes:
+// A program runs over a file of rows, one 32-bit lane word a row for
+// each of the WD lane words of a warp (row r of word q at r * WD + q):
+// row 0 holds 0, row 1 all ones, rows 2.. the program's input buses,
+// then temporaries.  Every gate is a LUT3 over three rows,
+// written to a fourth, 8 bytes:
 //   x = a | b << 12 | imm << 24      (imm: PTX lop3.b32 truth table)
-//   y = c | d << 12 | n << 24        (n: size of the group it opens, else 0)
-// Gates come in groups of at most GROUP_MAX that read nothing written in
-// their own group, so a group issues all its operand loads, then all its
-// evaluations, then all its stores: several gates in flight a warp.
+//   y = c | d << 12 | 1 << 24        (an empty slot is all zero)
+// Gates come in groups of GROUP_MAX slots that read nothing written in
+// their own group and write nothing the group reads, so a group's slots
+// run in any order: the kernel gives each lane word GS lanes (GS divides
+// GROUP_MAX, WD = 32 / GS), lane s of a word runs slots s, s + GS, ... of
+// every group, and the warp syncs once a group.
 
 #pragma once
 #include <cstdint>
@@ -36,8 +39,7 @@ namespace bsi {
 
 constexpr int ROW_BITS = 12;
 constexpr uint32_t ROW_MASK = (1u << ROW_BITS) - 1u;
-constexpr int GROUP_MAX = 8;   // gates a group at most
-constexpr int LANES = 32;      // words a row: one a lane of a warp
+constexpr int GROUP_MAX = 8;   // slots a group: lanes a lane word at most
 constexpr int ZERO_ROW = 0, ONES_ROW = 1, FIRST_INPUT_ROW = 2;
 
 // Run-time LUT3 evaluators (the kernel takes one; scripts/
@@ -121,100 +123,39 @@ BSI_FN uint32_t row_b(uint2 w) { return (w.x >> ROW_BITS) & ROW_MASK; }
 BSI_FN uint32_t imm_of(uint2 w) { return w.x >> 24; }
 BSI_FN uint32_t row_c(uint2 w) { return w.y & ROW_MASK; }
 BSI_FN uint32_t row_d(uint2 w) { return (w.y >> ROW_BITS) & ROW_MASK; }
-BSI_FN int group_of(uint2 w) { return (int)(w.y >> 24); }
+BSI_FN bool valid(uint2 w) { return (w.y >> 24) != 0u; }
 
-// Probe hooks: NoProbe compiles to nothing.  A probe with SERIAL set
-// runs the phases of each group one after another (no prefetch) and is
-// told, after each, a word that depends on all the phase's results.
+// Probe hooks: NoProbe compiles to nothing.  A probe with SERIAL set is
+// told, after each phase of a gate, a word that depends on all the
+// phase's results, so the phases run one after another.
 enum { PH_FETCH = 0, PH_LOADS = 1, PH_EVAL = 2, PH_STORES = 3 };
 struct NoProbe {
   static constexpr bool SERIAL = false;
   BSI_FN void mark(int, uint32_t) {}
 };
 
-// One group of N gates: every operand load, then every evaluation, then
-// every store.  `masks` is the 256-row mask table (LUT_MUX only).
-template <int N, int LUT, class Probe>
-BSI_FN void run_group(const uint2 (&w)[GROUP_MAX], uint32_t* __restrict__ f,
-                      const uint4* __restrict__ masks, Probe& pr) {
-  uint32_t a[N], b[N], c[N], v[N];
-  BSI_UNROLL
-  for (int j = 0; j < N; ++j) {
-    a[j] = f[row_a(w[j]) * LANES];
-    b[j] = f[row_b(w[j]) * LANES];
-    c[j] = f[row_c(w[j]) * LANES];
+// One slot of a group: the gate w over the file of this lane's word (f:
+// its row 0; row r at f[r * WD]), `masks` the 256-row mask table
+// (LUT_MUX only).  An empty slot does nothing.
+template <int LUT, int WD, class Probe>
+BSI_FN void run_gate(uint2 w, uint32_t* __restrict__ f,
+                     const uint4* __restrict__ masks, Probe& pr) {
+  if (!valid(w)) return;
+  const uint32_t a = f[row_a(w) * WD], b = f[row_b(w) * WD],
+                 c = f[row_c(w) * WD];
+  if constexpr (Probe::SERIAL) pr.mark(PH_LOADS, a ^ b ^ c);
+  const uint32_t imm = imm_of(w);
+  uint32_t v;
+  if constexpr (LUT == LUT_MUX) {
+    v = lut_mux(masks[2 * imm], masks[2 * imm + 1], a, b, c);
+  } else if constexpr (LUT == LUT_SWITCH) {
+    v = lut_switch(imm, a, b, c);
+  } else {
+    v = lop3_c(a, b, c, imm);
   }
-  if constexpr (Probe::SERIAL) {
-    uint32_t dep = 0u;
-    for (int j = 0; j < N; ++j) dep ^= a[j] ^ b[j] ^ c[j];
-    pr.mark(PH_LOADS, dep);
-  }
-  BSI_UNROLL
-  for (int j = 0; j < N; ++j) {
-    const uint32_t imm = imm_of(w[j]);
-    if constexpr (LUT == LUT_MUX) {
-      const uint4 lo = masks[2 * imm], hi = masks[2 * imm + 1];
-      v[j] = lut_mux(lo, hi, a[j], b[j], c[j]);
-    } else if constexpr (LUT == LUT_SWITCH) {
-      v[j] = lut_switch(imm, a[j], b[j], c[j]);
-    } else {
-      v[j] = lop3_c(a[j], b[j], c[j], imm);
-    }
-  }
-  if constexpr (Probe::SERIAL) {
-    uint32_t dep = 0u;
-    for (int j = 0; j < N; ++j) dep ^= v[j];
-    pr.mark(PH_EVAL, dep);
-  }
-  BSI_UNROLL
-  for (int j = 0; j < N; ++j) f[row_d(w[j]) * LANES] = v[j];
+  if constexpr (Probe::SERIAL) pr.mark(PH_EVAL, v);
+  f[row_d(w) * WD] = v;
   if constexpr (Probe::SERIAL) pr.mark(PH_STORES, 0u);
-}
-
-// Run the n gates of `prog` over the file at `f` (this lane's row 0).
-// `prog` is padded with GROUP_MAX gates past its end: the words of the
-// next group are read while the current one runs.
-template <int LUT, class Probe>
-BSI_FN void run_program(const uint2* __restrict__ prog, int n,
-                        uint32_t* __restrict__ f,
-                        const uint4* __restrict__ masks, Probe& pr) {
-  uint2 cur[GROUP_MAX];
-  if constexpr (!Probe::SERIAL) {
-    BSI_UNROLL
-    for (int j = 0; j < GROUP_MAX; ++j) cur[j] = prog[j];
-  }
-  for (int i = 0; i < n;) {
-    if constexpr (Probe::SERIAL) {
-      uint32_t dep = 0u;
-      BSI_UNROLL
-      for (int j = 0; j < GROUP_MAX; ++j) {
-        cur[j] = prog[i + j];
-        dep ^= cur[j].x ^ cur[j].y;
-      }
-      pr.mark(PH_FETCH, dep);
-    }
-    const int m = group_of(cur[0]);
-    uint2 nxt[GROUP_MAX];
-    if constexpr (!Probe::SERIAL) {
-      BSI_UNROLL
-      for (int j = 0; j < GROUP_MAX; ++j) nxt[j] = prog[i + m + j];
-    }
-    switch (m) {
-      case 1: run_group<1, LUT>(cur, f, masks, pr); break;
-      case 2: run_group<2, LUT>(cur, f, masks, pr); break;
-      case 3: run_group<3, LUT>(cur, f, masks, pr); break;
-      case 4: run_group<4, LUT>(cur, f, masks, pr); break;
-      case 5: run_group<5, LUT>(cur, f, masks, pr); break;
-      case 6: run_group<6, LUT>(cur, f, masks, pr); break;
-      case 7: run_group<7, LUT>(cur, f, masks, pr); break;
-      default: run_group<GROUP_MAX, LUT>(cur, f, masks, pr); break;
-    }
-    i += m;
-    if constexpr (!Probe::SERIAL) {
-      BSI_UNROLL
-      for (int j = 0; j < GROUP_MAX; ++j) cur[j] = nxt[j];
-    }
-  }
 }
 
 }  // namespace bsi

@@ -18,20 +18,22 @@
 // program is capped but by shared memory, which the wrapper checks.
 //
 // What bounds it on the H100: each (row, lane word) accumulator folds its
-// C channels in order, so a batch-1 layer has only P x Mw chains (98
-// warps at 14x14x512), and an interpreted gate is a chain of dependent
+// C channels in order, so a batch-1 layer has only P x Mw chains (3136
+// at 14x14x512), and an interpreted gate is a chain of dependent
 // shared-memory accesses: operand loads, a run-time LUT3, a store the
-// next gate may load.  The design keeps every part of that chain short
-// and many gates in flight:
+// next gate may load.  One lane a lane word, interpreting gate after
+// gate, is bound by one warp's issue (scripts/torch_interp_probe.py).
+// The design puts many gates of a chain in flight at once and keeps each
+// short:
 //
-// * One chain warp a block by default (_build.launch_blocks), so a
-//   batch-1 layer's 98 chain warps land on 98 SMs.
+// * Lanes across gates: the netlist is levelized into groups of up to 8
+//   gates that neither read what the group writes nor write what it
+//   reads; each lane word gets GS lanes (8 unless the block's chains
+//   need fewer), lane s running slots s, s + GS, ... of every group, so
+//   a warp covers 32 / GS lane words and syncs once a group.
 // * Both programs staged once a block into shared memory by cp.async,
-//   8 bytes a gate, read warp-uniformly (broadcast) with the next group's
-//   words loaded while the current group runs.
-// * Gates grouped by level: a group of up to 8 gates that read nothing
-//   written inside it issues all its operand loads, then all its LUT3s,
-//   then all its stores.
+//   8 bytes a gate, each lane reading its next slot while it runs this
+//   one.
 // * The run-time LUT3 chosen by BSM_LUT (scripts/torch_interp_probe.py
 //   times the three): seven lop3 muxes over the truth table's masks, read
 //   from a 256-row table in shared memory.
@@ -42,7 +44,7 @@
 //
 // Shared memory: the barriers, the programs, the mask table, two raw C
 // tiles, the product ring, a file of rows for each chain warp and each
-// producer warp (row r, lane l at r * 32 + l: conflict-free).
+// producer warp.
 
 #include <cstdint>
 #include <type_traits>
@@ -59,27 +61,34 @@
 namespace {
 
 constexpr int S = hf::STAGES;        // ring slots of products
-constexpr int MAX_THREADS = 512;     // __launch_bounds__: 128 registers
+constexpr int MAX_THREADS = 1024;    // __launch_bounds__: 64 registers
 constexpr int PROBE_WORDS = 8;       // probe counters a warp
 
 // Byte offsets of the parts of a block's shared memory (mirrored by
-// repro_torch/kernels/bitslice_mac/kernel.py::smem_bytes).
+// repro_torch/kernels/bitslice_mac/kernel.py::smem_bytes).  A block's
+// chains (lane words) are padded to whole chain warps: nch of them.
 struct Layout {
   size_t blob, masks, raw, ring, cfile, pfile, total;
 };
 
+__host__ __device__ inline int padded_chains(int tp, int tw, int gs) {
+  const int wd = 32 / gs;
+  return (tp * tw + wd - 1) / wd * wd;
+}
+
 __host__ __device__ inline Layout layout(int blob_words, int add_rows,
                                          int mul_rows, int nin, int nout,
-                                         int tp, int tw, int ct, int pw) {
-  const size_t ncw = (tp * tw + 31) / 32;
+                                         int tp, int tw, int ct, int pw,
+                                         int gs) {
+  const size_t nch = padded_chains(tp, tw, gs);
   Layout L;
   size_t o = 16 * S;                                  // full[S], empty[S]
   L.blob = o;  o += 4 * (size_t)blob_words;           // a multiple of 16
   L.masks = o; o += 256 * 8 * 4;
   L.raw = o;   o += 4 * 2 * (size_t)(tw + tp) * (ct * nin + 1);
-  L.ring = o;  o += 4 * S * ncw * ct * nout * 32;
-  L.cfile = o; o += 4 * ncw * add_rows * 32;
-  L.pfile = o; o += 4 * pw * ncw * mul_rows * 32;
+  L.ring = o;  o += 4 * S * (size_t)ct * nout * nch;
+  L.cfile = o; o += 4 * (size_t)add_rows * nch;
+  L.pfile = o; o += 4 * (size_t)pw * mul_rows * nch;
   L.total = o;
   return L;
 }
@@ -158,24 +167,52 @@ struct Args {
   const int32_t* w_planes;
   int32_t* out;
   const int32_t* blob;                  // programs and output rows
-  int blob_words, add_n, add_rows, mul_off, mul_n, mul_rows, aout_off,
-      mout_off;
+  int blob_words, add_groups, add_rows, mul_off, mul_groups, mul_rows,
+      aout_off, mout_off;
   int nin, nout, k, P, C, Mw, tp, tw, ct, pw;
   unsigned long long* probe;            // PROBE_WORDS a warp
 };
 
+// Run a program's groups: this lane's slots of each (the next group's
+// read while this one runs), the warp synced after every group.
+template <int LUT, int GS, class Probe>
+__device__ __forceinline__ void run_program(const uint2* __restrict__ prog,
+                                            int groups, int slot,
+                                            uint32_t* __restrict__ f,
+                                            const uint4* __restrict__ masks,
+                                            Probe& pr) {
+  constexpr int G = bsi::GROUP_MAX, N = G / GS, WD = 32 / GS;
+  uint2 w[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) w[j] = prog[slot + j * GS];
+  for (int g = 0; g < groups; ++g) {
+    uint2 next[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) next[j] = prog[(g + 1) * G + slot + j * GS];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if constexpr (Probe::SERIAL) pr.mark(bsi::PH_FETCH, w[j].x ^ w[j].y);
+      bsi::run_gate<LUT, WD>(w[j], f, masks, pr);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < N; ++j) w[j] = next[j];
+  }
+}
+
 // Chain warps: counters 0-3 the program's phases, 4 ring waits, 5 the
 // step's input and output copies, 7 chain steps.  Producer warps: 0-3 the
 // multiplier's phases, 4 waits (tile landed, barrier, empty slot), 5
-// staging issue, 6 product copies, 7 channels.
-template <int LUT, bool PROBE>
+// staging issue, 6 product copies, 7 channels.  Each warp's lane 0.
+template <int LUT, bool PROBE, int GS>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     bitslice_mac_kernel(const Args A) {
   using Probe = typename std::conditional<PROBE, ClockProbe,
                                           bsi::NoProbe>::type;
+  constexpr int WD = 32 / GS;                // lane words a warp
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout(A.blob_words, A.add_rows, A.mul_rows, A.nin,
-                          A.nout, A.tp, A.tw, A.ct, A.pw);
+                          A.nout, A.tp, A.tw, A.ct, A.pw, GS);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + S;
   const uint32_t* blob = reinterpret_cast<const uint32_t*>(smem + L.blob);
@@ -184,31 +221,39 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem + L.ring);
   const int nin = A.nin, nout = A.nout, k = A.k, C = A.C, ct = A.ct;
   const int tp = A.tp, tw = A.tw;
-  const int nl = (tp * tw + 31) / 32 * 32;   // chain threads
-  const int ncw = nl / 32, np = A.pw * nl;   // chain warps, producers
+  const int nch = padded_chains(tp, tw, GS); // chains, whole warps
+  const int nl = nch * GS, np = A.pw * nl;   // chain, producer threads
   const int nthr = nl + np;
   const int tid = threadIdx.x, lane = tid & 31;
+  const int slot = lane % GS;                // this lane's first slot
   const int w0 = blockIdx.x * tw, p0 = blockIdx.y * tp;
   const int T = (C + ct - 1) / ct;
   const int pitch = ct * nin + 1;            // raw row, padded a word
   const int raw_words = (tw + tp) * pitch;
 
-  // Stage both programs, build the mask table, clear this thread's file.
+  // Stage both programs, build the mask table, clear this word's file.
   for (int i = tid; i < A.blob_words / 4; i += nthr)
     cp_async16(smem + L.blob + 16 * i, A.blob + 4 * i);
   hf::cp_async_commit();
   for (int i = tid; i < 256; i += nthr)
     bsi::lut_masks(i, masks[2 * i], masks[2 * i + 1]);
   const bool chain = tid < nl;
+  // This lane's chain (lane word of the block) and its file: warp wi of
+  // the chain warps, or of one producer group, serves chains wi*WD ...
+  const int wi = (chain ? tid : (tid - nl) % nl) / 32;
+  const int ch = wi * WD + lane / GS;
   uint32_t* f = chain
-      ? reinterpret_cast<uint32_t*>(smem + L.cfile) +
-            (tid / 32) * A.add_rows * 32 + lane
+      ? reinterpret_cast<uint32_t*>(smem + L.cfile) + wi * A.add_rows * WD +
+            lane / GS
       : reinterpret_cast<uint32_t*>(smem + L.pfile) +
-            ((tid - nl) / 32) * A.mul_rows * 32 + lane;
-  f[bsi::ZERO_ROW * 32] = 0u;
-  f[bsi::ONES_ROW * 32] = ~0u;
+            ((tid - nl) / 32) * A.mul_rows * WD + lane / GS;
+  if (slot == 0) {
+    f[bsi::ZERO_ROW * WD] = 0u;
+    f[bsi::ONES_ROW * WD] = ~0u;
+  }
   if (chain)   // the accumulator rows: +0
-    for (int b = 0; b < nout; ++b) f[(bsi::FIRST_INPUT_ROW + b) * 32] = 0u;
+    for (int b = slot; b < nout; b += GS)
+      f[(bsi::FIRST_INPUT_ROW + b) * WD] = 0u;
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       hf::mbar_init(&full[s], np);
@@ -219,6 +264,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   hf::cp_async_wait<0>();
   __syncthreads();
 
+  const int cl = ch < tp * tw ? ch : 0;      // padded chains run chain 0
+  const int ty = cl / tw, tx = cl % tw;
   Probe pr;
   unsigned long long extra[3] = {0, 0, 0};   // probe: waits, copies, stage
   long long steps = 0;
@@ -226,8 +273,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 
   if (chain) {
     // ---- chain warps: fold the C channels in order, k a step ---------
-    const int li = tid < tp * tw ? tid : 0;
-    const int ty = li / tw, tx = li % tw;
     const uint2* prog = reinterpret_cast<const uint2*>(blob);
     const uint32_t* aout = blob + A.aout_off;
     const int in_row = bsi::FIRST_INPUT_ROW + nout;   // p0 bit 0
@@ -238,23 +283,25 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       hf::mbar_wait(&full[s], (t / S) & 1);
       if constexpr (PROBE) extra[0] += clock64() - c0;
       const int cend = min(ct, (C - t * ct + k - 1) / k * k);
-      const uint32_t* rs = ring + (size_t)(s * ncw + tid / 32) * ct * nout *
-                                      32 + lane;
+      // ring slot s: [channel][bit][chain]
+      const uint32_t* rs = ring + (size_t)s * ct * nout * nch + ch;
       for (int cc = 0; cc < cend; cc += k) {
         if constexpr (PROBE) c0 = clock64();
-        const uint32_t* src = rs + cc * nout * 32;
-        for (int i = 0; i < k * nout; ++i)
-          f[(in_row + i) * 32] = src[i * 32];
+        const uint32_t* src = rs + (size_t)cc * nout * nch;
+        for (int i = slot; i < k * nout; i += GS)
+          f[(in_row + i) * WD] = src[i * nch];
+        __syncwarp();
         if constexpr (PROBE) {
-          extra[1] += ClockProbe::clock_after(f[in_row * 32]) - c0;
+          extra[1] += ClockProbe::clock_after(f[in_row * WD]) - c0;
           pr.start();
         }
-        bsi::run_program<LUT>(prog, A.add_n, f, masks, pr);
+        run_program<LUT, GS>(prog, A.add_groups, slot, f, masks, pr);
         if constexpr (PROBE) c0 = clock64();
-        for (int b = 0; b < nout; ++b)
-          f[(bsi::FIRST_INPUT_ROW + b) * 32] = f[aout[b] * 32];
+        for (int b = slot; b < nout; b += GS)
+          f[(bsi::FIRST_INPUT_ROW + b) * WD] = f[aout[b] * WD];
+        __syncwarp();
         if constexpr (PROBE) {
-          extra[1] += ClockProbe::clock_after(f[bsi::FIRST_INPUT_ROW * 32]) -
+          extra[1] += ClockProbe::clock_after(f[bsi::FIRST_INPUT_ROW * WD]) -
                       c0;
           ++steps;
         }
@@ -262,17 +309,15 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       hf::mbar_arrive(&empty[s]);
     }
     const int p = p0 + ty, w = w0 + tx;
-    if (tid < tp * tw && p < A.P && w < A.Mw) {
-      for (int b = 0; b < nout; ++b)
+    if (ch < tp * tw && p < A.P && w < A.Mw) {
+      for (int b = slot; b < nout; b += GS)
         A.out[((size_t)b * A.P + p) * A.Mw + w] =
-            (int32_t)f[(bsi::FIRST_INPUT_ROW + b) * 32];
+            (int32_t)f[(bsi::FIRST_INPUT_ROW + b) * WD];
     }
   } else {
     // ---- producer warps: stage C tiles and multiply ahead ------------
     const int i = tid - nl;
-    const int g = i / nl, li = i % nl;     // channel group, chain lane
-    const int ll = li < tp * tw ? li : 0;
-    const int ty = ll / tw, tx = ll % tw;
+    const int g = i / nl;                  // channel group
     const uint2* prog = reinterpret_cast<const uint2*>(blob + A.mul_off);
     const uint32_t* mout = blob + A.mout_off;
     const int y_row = bsi::FIRST_INPUT_ROW + nin;
@@ -302,18 +347,18 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       const int cend = min(ct, (C - t * ct + k - 1) / k * k);
       const uint32_t* xw = rs + tx * pitch;
       const uint32_t* yi = rs + (tw + ty) * pitch;
-      uint32_t* pp = ring + (size_t)(s * ncw + li / 32) * ct * nout * 32 +
-                     lane;
+      uint32_t* pp = ring + (size_t)s * ct * nout * nch + ch;
       for (int c = g; c < cend; c += A.pw) {
-        for (int b = 0; b < nin; ++b) {
-          f[(bsi::FIRST_INPUT_ROW + b) * 32] = xw[c * nin + b];
-          f[(y_row + b) * 32] = yi[c * nin + b];
+        for (int b = slot; b < nin; b += GS) {
+          f[(bsi::FIRST_INPUT_ROW + b) * WD] = xw[c * nin + b];
+          f[(y_row + b) * WD] = yi[c * nin + b];
         }
+        __syncwarp();
         if constexpr (PROBE) pr.start();
-        bsi::run_program<LUT>(prog, A.mul_n, f, masks, pr);
+        run_program<LUT, GS>(prog, A.mul_groups, slot, f, masks, pr);
         if constexpr (PROBE) c0 = clock64();
-        for (int b = 0; b < nout; ++b)
-          pp[(c * nout + b) * 32] = f[mout[b] * 32];
+        for (int b = slot; b < nout; b += GS)
+          pp[((size_t)c * nout + b) * nch] = f[mout[b] * WD];
         if constexpr (PROBE) {
           extra[1] += clock64() - c0;
           ++steps;
@@ -338,27 +383,40 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   }
 }
 
-template <int LUT, bool PROBE>
-int launch(const Args& a, void* stream) {
+template <int LUT, bool PROBE, int GS>
+int launch_gs(const Args& a, void* stream) {
   const Layout L = layout(a.blob_words, a.add_rows, a.mul_rows, a.nin,
-                          a.nout, a.tp, a.tw, a.ct, a.pw);
+                          a.nout, a.tp, a.tw, a.ct, a.pw, GS);
   cudaError_t err = cudaFuncSetAttribute(
-      bitslice_mac_kernel<LUT, PROBE>,
+      bitslice_mac_kernel<LUT, PROBE, GS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
-  const int threads = (1 + a.pw) * ((a.tp * a.tw + 31) / 32 * 32);
+  const int threads = (1 + a.pw) * padded_chains(a.tp, a.tw, GS) * GS;
   const dim3 grid((a.Mw + a.tw - 1) / a.tw, (a.P + a.tp - 1) / a.tp);
-  bitslice_mac_kernel<LUT, PROBE>
+  bitslice_mac_kernel<LUT, PROBE, GS>
       <<<grid, threads, L.total, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// gs: lanes a chain, 1, 2, 4 or 8 (the wrapper picks it).
+template <int LUT, bool PROBE>
+int launch(const Args& a, int gs, void* stream) {
+  switch (gs) {
+    case 8: return launch_gs<LUT, PROBE, 8>(a, stream);
+    case 4: return launch_gs<LUT, PROBE, 4>(a, stream);
+    case 2: return launch_gs<LUT, PROBE, 2>(a, stream);
+    case 1: return launch_gs<LUT, PROBE, 1>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 Args make_args(const int32_t* i_masks, const int32_t* w_planes,
                int32_t* out, const int32_t* blob, const int32_t* meta,
                int nin, int nout, int k, int P, int C, int Mw, int tp, int tw,
                int ct, int pw, unsigned long long* probe) {
-  // meta: blob_words, add_n, add_rows, mul_off, mul_n, mul_rows,
-  // aout_off, mout_off (repro_torch/kernels/bitslice_mac/kernel.py).
+  // meta: blob_words, add_groups, add_rows, mul_off, mul_groups,
+  // mul_rows, aout_off, mout_off (repro_torch/kernels/bitslice_mac/
+  // kernel.py).
   return Args{i_masks, w_planes, out,     blob,    meta[0], meta[1],
               meta[2], meta[3],  meta[4], meta[5], meta[6], meta[7],
               nin,     nout,     k,       P,       C,       Mw,
@@ -369,8 +427,9 @@ Args make_args(const int32_t* i_masks, const int32_t* w_planes,
 
 extern "C" size_t bitslice_mac_smem_bytes(const int32_t* meta, int nin,
                                           int nout, int tp, int tw, int ct,
-                                          int pw) {
-  return layout(meta[0], meta[2], meta[5], nin, nout, tp, tw, ct, pw).total;
+                                          int pw, int gs) {
+  return layout(meta[0], meta[2], meta[5], nin, nout, tp, tw, ct, pw, gs)
+      .total;
 }
 
 // meta is a host array of the 8 program counts and offsets; blob is the
@@ -380,11 +439,11 @@ extern "C" int bitslice_mac_launch(const int32_t* i_masks,
                                    const int32_t* blob, const int32_t* meta,
                                    int nin, int nout, int k, int P, int C,
                                    int Mw, int tp, int tw, int ct, int pw,
-                                   void* stream) {
+                                   int gs, void* stream) {
   return launch<BSM_LUT, false>(
       make_args(i_masks, w_planes, out, blob, meta, nin, nout, k, P, C, Mw,
                 tp, tw, ct, pw, nullptr),
-      stream);
+      gs, stream);
 }
 
 #ifdef BSM_PROBE
@@ -395,10 +454,11 @@ extern "C" int bitslice_mac_probe(const int32_t* i_masks,
                                   const int32_t* blob, const int32_t* meta,
                                   int nin, int nout, int k, int P, int C,
                                   int Mw, int tp, int tw, int ct, int pw,
-                                  void* stream, unsigned long long* probe) {
+                                  int gs, void* stream,
+                                  unsigned long long* probe) {
   return launch<BSM_LUT, true>(
       make_args(i_masks, w_planes, out, blob, meta, nin, nout, k, P, C, Mw,
                 tp, tw, ct, pw, probe),
-      stream);
+      gs, stream);
 }
 #endif

@@ -146,7 +146,7 @@ def build_job(defines: str = "") -> tuple[str, str]:
 _BOUND: dict = {}
 
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int32)]
-         + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+         + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
 def bind(library: _build.Library, probe: bool = False):
@@ -186,8 +186,8 @@ class DevicePrograms:
         blob = np.concatenate(parts).astype(np.int32)
         self.mul, self.add = mul, add
         self.blob = torch.from_numpy(blob).to(device)
-        self.meta_list = [len(blob), add.n, add.nrows, offs[1], mul.n,
-                          mul.nrows, offs[2], offs[3]]
+        self.meta_list = [len(blob), add.groups, add.nrows, offs[1],
+                          mul.groups, mul.nrows, offs[2], offs[3]]
         self.meta = (ctypes.c_int32 * 8)(*self.meta_list)
 
     @property
@@ -206,56 +206,79 @@ def device_programs(fmt: FPFormat, k: int, extended: bool, rounding: str,
 STAGES = 3          # ring slots of products (hf::STAGES)
 
 
+LANES_A_CHAIN = (8, 4, 2, 1)    # lanes a chain the kernel is built for
+
+
+def padded_chains(p_block: int, m_block: int, gs: int) -> int:
+    """A block's ``p_block x m_block`` chains (lane words) padded to
+    whole warps of ``32 // gs`` chains, ``gs`` lanes each."""
+    wd = 32 // gs
+    return -(-p_block * m_block // wd) * wd
+
+
+def block_threads(p_block: int, m_block: int, pw: int, gs: int) -> int:
+    """Threads of one interpreter block: the chain warps and ``pw``
+    producer warps for each."""
+    return (1 + pw) * padded_chains(p_block, m_block, gs) * gs
+
+
+def lanes_a_chain(p_block: int, m_block: int, pw: int) -> int:
+    """Lanes a chain: :data:`GROUP_MAX` (one a slot of a group) unless
+    the block's chains would then need more than
+    ``_build.INTERP_MAX_THREADS`` threads, else the most that fit; at
+    one lane a chain the block is checked as it is."""
+    return next((gs for gs in LANES_A_CHAIN if block_threads(
+        p_block, m_block, pw, gs) <= _build.INTERP_MAX_THREADS), 1)
+
+
 def smem_bytes(progs: DevicePrograms, nin: int, p_block: int,
-               m_block: int, ct: int, pw: int) -> int:
+               m_block: int, ct: int, pw: int, gs: int) -> int:
     """Dynamic shared memory of one interpreter block (mirrors
     ``layout`` in the source): the ring's barriers, both programs, the
     256-row LUT3 mask table, two raw C tiles, the product ring, and a
-    file of rows for each chain warp and each producer warp."""
-    ncw = -(-p_block * m_block // 32)
+    file of rows for each chain warp and each producer warp, a row one
+    word a chain."""
+    nch = padded_chains(p_block, m_block, gs)
     nout = progs.add.nout
     return (16 * STAGES + progs.program_bytes + 256 * 32
             + 4 * 2 * (m_block + p_block) * (ct * nin + 1)
-            + 4 * STAGES * ncw * ct * nout * 32
-            + 4 * ncw * progs.add.nrows * 32
-            + 4 * pw * ncw * progs.mul.nrows * 32)
-
-
-def block_threads(p_block: int, m_block: int,
-                  pw: int = _build.INTERP_PRODUCERS) -> int:
-    """Threads of one interpreter block: the chain warps over
-    ``p_block x m_block`` (row, lane word) chains and ``pw`` producer
-    warps for each."""
-    return (1 + pw) * (-(-p_block * m_block // 32) * 32)
+            + 4 * STAGES * ct * nout * nch
+            + 4 * progs.add.nrows * nch
+            + 4 * pw * progs.mul.nrows * nch)
 
 
 def ring_slot(progs: DevicePrograms, nin: int, p_block: int, m_block: int,
-              c_block: int, k: int, pw: int) -> int:
+              c_block: int, k: int, pw: int, gs: int) -> int:
     """Channels of a ring slot: ``c_block`` rounded up to the chain depth
     (``_build.c_tile``), less whole chain steps while the block would not
     fit in shared memory.  Values never depend on it."""
     ct = _build.c_tile(c_block, k)
-    while ct > k and smem_bytes(progs, nin, p_block, m_block, ct,
-                                pw) > _build.MAX_SMEM:
+    while ct > k and smem_bytes(progs, nin, p_block, m_block, ct, pw,
+                                gs) > _build.MAX_SMEM:
         ct -= k
     return ct
 
 
 def launch(fn, i_masks, w_planes, out, progs: DevicePrograms, k: int,
-           p_block: int, m_block: int, ct: int, pw: int, probe=None) -> None:
-    """Check a block of these parameters and launch ``fn`` (a bound C
-    entry) on the current stream; raises before launching what the card
-    would refuse.  ``probe``: the probe entry's counter tensor."""
+           p_block: int, m_block: int, c_block: int, pw: int,
+           probe=None) -> None:
+    """Launch ``fn`` (a bound C entry) on the current stream for a block
+    of these parameters (lanes a chain from :func:`lanes_a_chain`, the
+    ring slot from :func:`ring_slot`), after checking it: raises before
+    launching what the card would refuse.  ``probe``: the probe entry's
+    counter tensor."""
     P, C, nin = i_masks.shape
     Mw = w_planes.shape[2]
-    smem = smem_bytes(progs, nin, p_block, m_block, ct, pw)
+    gs = lanes_a_chain(p_block, m_block, pw)
+    ct = ring_slot(progs, nin, p_block, m_block, c_block, k, pw, gs)
+    smem = smem_bytes(progs, nin, p_block, m_block, ct, pw, gs)
     _build.check_blocks(p_block, m_block, ct, smem,
-                        threads=block_threads(p_block, m_block, pw),
+                        threads=block_threads(p_block, m_block, pw, gs),
                         max_threads=_build.INTERP_MAX_THREADS,
                         what=f"{progs.program_bytes} B of programs")
     args = [_build.ptr(i_masks), _build.ptr(w_planes), _build.ptr(out),
             _build.ptr(progs.blob), progs.meta, nin, progs.add.nout, k, P,
-            C, Mw, p_block, m_block, ct, pw, _build.stream_ptr()]
+            C, Mw, p_block, m_block, ct, pw, gs, _build.stream_ptr()]
     if probe is not None:
         args.append(_build.ptr(probe))
     with torch.cuda.device(i_masks.device):
@@ -272,10 +295,11 @@ def bitslice_mac_cuda(i_masks: torch.Tensor, w_planes: torch.Tensor, *,
     """HOBFLOPS GEMM in bit planes: i_masks [P, C, NIN] in {0, -1},
     w_planes [C, NIN, Mw] -> [NOUT, P, Mw] int32.
 
-    On CUDA tensors this launches ``csrc/bitslice_mac.cu`` (blocks of
-    ``m_block x p_block`` chain threads and ``_build.INTERP_PRODUCERS``
-    producer warps a chain warp, ring slots of ``c_block`` channels
-    (:func:`ring_slot`); missing values from
+    On CUDA tensors this launches ``csrc/bitslice_mac.cu`` (blocks over
+    ``m_block x p_block`` (row, lane word) chains, :func:`lanes_a_chain`
+    lanes each, and ``_build.INTERP_PRODUCERS`` producer warps a chain
+    warp; ring slots of ``c_block`` channels (:func:`ring_slot`); missing
+    values from
     :func:`_build.launch_blocks`); on CPU tensors it runs the plain
     version.  Any shape is accepted — the kernel masks the ragged P, Mw
     and C edges — and the output never depends on the blocks.
@@ -297,9 +321,8 @@ def bitslice_mac_cuda(i_masks: torch.Tensor, w_planes: torch.Tensor, *,
                             str(i_masks.device))
     out = torch.empty((progs.add.nout, P, Mw), dtype=torch.int32,
                       device=i_masks.device)
-    p, m, pw = blk["p_block"], blk["m_block"], _build.INTERP_PRODUCERS
-    launch(_launch_fn(), i_masks, w_planes, out, progs, k, p, m,
-           ring_slot(progs, nin, p, m, blk["c_block"], k, pw), pw)
+    launch(_launch_fn(), i_masks, w_planes, out, progs, k, blk["p_block"],
+           blk["m_block"], blk["c_block"], _build.INTERP_PRODUCERS)
     bitslice_mac_cuda.launches += 1
     return out
 

@@ -17,23 +17,24 @@ function becomes a PTX ``lop3.b32`` truth table (``imm``: bit
 ``4a + 2b + c``).  A gate is 8 bytes::
 
     x = a | b << 12 | imm << 24
-    y = c | d << 12 | n << 24     (n: size of the group it opens, else 0)
+    y = c | d << 12 | 1 << 24      (an empty slot is all zero)
 
 so a program addresses up to 4096 rows — far more than a block's shared
 memory holds, which the launch checks first.
 
 **Schedule.**  Gates are ordered by level (ASAP depth) and packed into
 groups of at most :data:`GROUP_MAX` that read nothing written inside
-their own group.  The interpreter issues every operand load of a group
-before its evaluations and its stores, so a warp has a group's gates in
-flight at once.  Rows are allocated group by group: the rows a group
-reads for the last time are free for that same group's results (its
-loads come first), an output row is never reused, and no result is
-written to an input row — an output that is an input bit gets a copy
-gate — so copying the outputs into the accumulator rows after a step
-cannot overwrite an output.  This scheduler is the interpreter's own;
-``core.codegen._slot_schedule`` (one gate at a time) is left as the
-reference has it.
+their own group; each group fills :data:`GROUP_MAX` slots, the unused
+ones empty.  The kernel gives each lane word up to :data:`GROUP_MAX`
+lanes, each running its slots of a group, so a group's gates run side
+by side and a warp waits once a group.  Rows are allocated group by group: a row read for the last time
+in a group is free from the next group on, so no row is both read and
+written inside a group and its slots may run in any order; an output
+row is never reused, and no result is written to an input row — an
+output that is an input bit gets a copy gate — so copying the outputs
+into the accumulator rows after a step cannot overwrite an output.
+This scheduler is the interpreter's own; ``core.codegen._slot_schedule``
+(one gate at a time) is left as the reference has it.
 """
 from __future__ import annotations
 
@@ -58,7 +59,7 @@ from repro_torch.core.opt import optimize_mapped
 # Shared with csrc/bitslice_interp.cuh.
 ROW_BITS = 12
 MAX_ROWS = 1 << ROW_BITS
-GROUP_MAX = 8
+GROUP_MAX = 8                  # slots a group: lanes a chain at most
 ZERO_ROW, ONES_ROW, FIRST_INPUT_ROW = 0, 1, 2
 
 # The cell library the interpreter runs by default: avx512's LUT3 cells
@@ -94,10 +95,11 @@ class Gate:
 class Program:
     """A netlist encoded for the interpreter (see the module docstring).
 
-    ``words`` is ``[n + GROUP_MAX, 2]`` int32 (the two words of each
-    gate as uint32 bit patterns, then zero padding the kernel reads
-    ahead into); ``inputs`` names each input bus and its width in row
-    order from row 2; ``out_rows`` holds the row of each output bit.
+    ``words`` is ``[groups + 1, GROUP_MAX, 2]`` int32: the two words of
+    each slot as uint32 bit patterns, group by group, then an empty
+    group the kernel reads ahead into; ``n`` counts the gates.
+    ``inputs`` names each input bus and its width in row order from row
+    2; ``out_rows`` holds the row of each output bit.
     """
     words: np.ndarray
     n: int
@@ -121,18 +123,13 @@ class Program:
     @functools.cached_property
     def decoded(self) -> list[list[tuple[int, int, int, int, int]]]:
         """The groups of ``(imm, a, b, c, d)`` read back from ``words``,
-        as the kernel reads them."""
-        w = self.words.view(np.uint32).astype(np.int64)
+        as the kernel reads them (empty slots left out)."""
+        w = self.words.view(np.uint32).astype(np.int64)[:self.groups]
         mask = MAX_ROWS - 1
-        out, i = [], 0
-        while i < self.n:
-            m = int(w[i, 1] >> 24)
-            out.append([(int(x >> 24), int(x & mask),
-                         int((x >> ROW_BITS) & mask), int(y & mask),
-                         int((y >> ROW_BITS) & mask))
-                        for x, y in w[i:i + m]])
-            i += m
-        return out
+        return [[(int(x >> 24), int(x & mask), int((x >> ROW_BITS) & mask),
+                  int(y & mask), int((y >> ROW_BITS) & mask))
+                 for x, y in grp if y >> 24]
+                for grp in w]
 
 
 def _const_of(graph: Graph, nid: int) -> int | None:
@@ -213,9 +210,6 @@ def schedule(graph: Graph, input_buses) -> tuple[list[list[Gate]], int,
             n = nodes[nid]
             rows = [src_row(ch) for ch in (n.a, n.b, n.c) if ch >= 0]
             srcs[nid] = tuple(rows + [ZERO_ROW] * (3 - len(rows)))
-        for ch in {ch for nid in grp for ch in kids(nid)}:
-            if last.get(ch) == gi and ch in result_row and ch not in pinned:
-                free.append(result_row[ch])
         out = []
         for nid in grp:
             if free:
@@ -231,7 +225,12 @@ def schedule(graph: Graph, input_buses) -> tuple[list[list[Gate]], int,
             else:
                 imm = _IMM[nodes[nid].op]
             out.append(Gate(nid, imm, srcs[nid], dst))
-        for nid in grp:       # a result read by no gate frees its row
+        # Rows read for the last time here, and results read by no gate,
+        # are free from the next group on.
+        for ch in {ch for nid in grp for ch in kids(nid)}:
+            if last.get(ch) == gi and ch in result_row and ch not in pinned:
+                free.append(result_row[ch])
+        for nid in grp:
             if nid not in last and nid not in pinned:
                 free.append(result_row[nid])
         groups.append(out)
@@ -253,16 +252,14 @@ def encode(graph: Graph, input_buses) -> Program:
     if nrows > MAX_ROWS:
         raise ValueError(f"netlist needs {nrows} rows; the interpreter's "
                          f"encoding addresses {MAX_ROWS}")
-    words = []
-    for grp in groups:
+    words = np.zeros((len(groups) + 1, GROUP_MAX, 2), np.uint32)
+    for gi, grp in enumerate(groups):
         for i, g in enumerate(grp):
             a, b, c = g.src
-            words.append((a | b << ROW_BITS | g.imm << 24,
-                          c | g.dst << ROW_BITS
-                          | (len(grp) if i == 0 else 0) << 24))
-    words += [(0, 0)] * GROUP_MAX
-    arr = np.asarray(words, np.uint32).view(np.int32).reshape(-1, 2)
-    return Program(arr, len(words) - GROUP_MAX, len(groups), nrows,
+            words[gi, i] = (a | b << ROW_BITS | g.imm << 24,
+                            c | g.dst << ROW_BITS | 1 << 24)
+    return Program(words.view(np.int32), sum(len(g) for g in groups),
+                   len(groups), nrows,
                    tuple((b, len(graph.inputs[b])) for b in input_buses),
                    np.asarray(out_rows, np.int32))
 

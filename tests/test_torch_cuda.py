@@ -378,35 +378,35 @@ def test_launch_blocks_are_checked_before_launch():
             _build.check_blocks(p, m, 32, smem)
     # The interpreter: barriers, both programs, the LUT3 mask table, two
     # raw C tiles, a 3-slot product ring and a file of rows for each
-    # chain warp and producer warp; (1 + pw) warps a chain warp.
-    # Both programs' words (8 padding gates each) and output rows, each
-    # part padded to 16 bytes.
+    # chain warp and producer warp, a row one word a chain (chains padded
+    # to whole warps of 32 / gs, gs lanes a chain).
     progs = interp.device_programs(F9, 4, False, RNE, "avx512", "cpu")
     nin, nout = F9.nbits, F9.mult_out().nbits
-
-    def pad4(n):
-        return -(-n // 4) * 4
-
-    assert progs.program_bytes == 4 * (
-        pad4(2 * (progs.add.n + 8)) + pad4(2 * (progs.mul.n + 8))
-        + 2 * pad4(nout))
-    assert interp.smem_bytes(progs, nin, 4, 16, 8, 2) == \
+    add, mul = progs.add, progs.mul
+    assert progs.program_bytes == 4 * (16 * (add.groups + 1)
+                                       + 16 * (mul.groups + 1) + 2 * 12)
+    assert interp.smem_bytes(progs, nin, 4, 16, 8, 2, 8) == \
         48 + progs.program_bytes + 256 * 32 + 4 * 2 * 20 * (8 * nin + 1) \
-        + 4 * 3 * 2 * 8 * nout * 32 + 4 * 2 * progs.add.nrows * 32 \
-        + 4 * 2 * 2 * progs.mul.nrows * 32
-    # A ring slot shrinks by chain steps until the block fits.
-    assert interp.ring_slot(progs, nin, 2, 16, 7, 4, 1) == 8
-    progs2 = interp.device_programs(F9, 2, False, RNE, "avx512", "cpu")
-    slot = interp.ring_slot(progs2, nin, 2, 32, 64, 2, 1)
-    assert slot % 2 == 0 and slot < 64
-    assert interp.smem_bytes(progs2, nin, 2, 32, slot, 1) <= \
-        _build.MAX_SMEM < interp.smem_bytes(progs2, nin, 2, 32, slot + 2, 1)
-    assert interp.block_threads(4, 16, 2) == 192
-    assert interp.block_threads(3, 7, 1) == 64
+        + 4 * 3 * 8 * nout * 64 + 4 * add.nrows * 64 \
+        + 4 * 2 * mul.nrows * 64
+    assert interp.padded_chains(3, 7, 8) == 24
+    assert interp.padded_chains(3, 7, 2) == 32
+    # Eight lanes a chain unless the block would pass 1024 threads.
+    assert interp.block_threads(4, 16, 2, 8) == 1536
+    assert [interp.lanes_a_chain(p, m, pw) for p, m, pw in
+            ((2, 8, 1), (4, 16, 2), (3, 32, 1), (16, 32, 1))] == [8, 4, 4, 1]
     with pytest.raises(ValueError, match="blocks p="):
-        _build.check_blocks(9, 32, 8, 0,
-                            threads=interp.block_threads(9, 32, 1),
+        _build.check_blocks(17, 32, 8, 0,
+                            threads=interp.block_threads(17, 32, 1, 1),
                             max_threads=_build.INTERP_MAX_THREADS)
+    # A ring slot shrinks by chain steps until the block fits.
+    assert interp.ring_slot(progs, nin, 2, 16, 7, 4, 1, 8) == 8
+    progs2 = interp.device_programs(F9, 2, False, RNE, "avx512", "cpu")
+    slot = interp.ring_slot(progs2, nin, 2, 32, 64, 2, 1, 8)
+    assert slot % 2 == 0 and slot < 64
+    assert interp.smem_bytes(progs2, nin, 2, 32, slot, 1, 8) <= \
+        _build.MAX_SMEM < interp.smem_bytes(progs2, nin, 2, 32, slot + 2, 1,
+                                            8)
     # The fused ring: 3 barrier pairs, 2 slots of staged words and 3 of
     # product planes (64 chain lanes).
     assert fused.smem_bytes(11, 12, 4, 16, 32) == \

@@ -48,20 +48,26 @@ extern "C" void lut_all(int method, const uint32_t* a, const uint32_t* b,
       out[imm * n + i] = v;
     }
 }
-// Run a program over a file of 32 lanes, lane by lane, as a warp's
-// lanes run it.
-extern "C" void run(int method, const uint2* prog, int n, uint32_t* file) {
+// Run a program over a file of WD lane words (row r of word q at
+// r * WD + q), group by group, every slot of every word as a warp's
+// lanes run them: a group's slots may run in any order.
+template <int LUT>
+static void run_t(const uint2* prog, int groups, uint32_t* file) {
+  constexpr int WD = 4;
   uint4 masks[512];
   for (int i = 0; i < 256; ++i) bsi::lut_masks(i, masks[2 * i], masks[2 * i + 1]);
   bsi::NoProbe pr;
-  for (int l = 0; l < bsi::LANES; ++l) {
-    if (method == bsi::LUT_MUX)
-      bsi::run_program<bsi::LUT_MUX>(prog, n, file + l, masks, pr);
-    else if (method == bsi::LUT_SWITCH)
-      bsi::run_program<bsi::LUT_SWITCH>(prog, n, file + l, masks, pr);
-    else
-      bsi::run_program<bsi::LUT_MINTERM>(prog, n, file + l, masks, pr);
-  }
+  for (int g = 0; g < groups; ++g)
+    for (int q = 0; q < WD; ++q)
+      for (int s = 0; s < bsi::GROUP_MAX; ++s)
+        bsi::run_gate<LUT, WD>(prog[g * bsi::GROUP_MAX + s], file + q, masks,
+                               pr);
+}
+extern "C" void run(int method, const uint2* prog, int groups,
+                    uint32_t* file) {
+  if (method == bsi::LUT_MUX) run_t<bsi::LUT_MUX>(prog, groups, file);
+  else if (method == bsi::LUT_SWITCH) run_t<bsi::LUT_SWITCH>(prog, groups, file);
+  else run_t<bsi::LUT_MINTERM>(prog, groups, file);
 }
 """
 
@@ -125,22 +131,22 @@ def _programs():
 
 @pytest.mark.parametrize("method", list(LUTS))
 def test_header_runs_encoded_programs(core, method):
-    """The kernel's program loop, built from the header, runs each
-    encoded chain step over a 32-lane file and leaves every output row
-    equal to ``eval_netlist`` of the netlist it encodes."""
+    """The kernel's gate, built from the header, runs each encoded chain
+    step slot by slot over a file of 4 lane words and leaves every
+    output row equal to ``eval_netlist`` of the netlist it encodes."""
     rng = np.random.default_rng(2)
     for label, graph, prog in _programs():
-        inputs = {bus: _words(rng, len(graph.inputs[bus]), 32)
+        inputs = {bus: _words(rng, len(graph.inputs[bus]), 4)
                   for bus, _ in prog.inputs}
         want = eval_netlist(graph, inputs)["out"]
-        file = np.zeros((prog.nrows, 32), np.uint32)
+        file = np.zeros((prog.nrows, 4), np.uint32)
         file[pg.ONES_ROW] = 0xFFFFFFFF
         row = pg.FIRST_INPUT_ROW
         for bus, width in prog.inputs:
             file[row:row + width] = inputs[bus]
             row += width
         words = np.ascontiguousarray(prog.words)
-        core.run(LUTS[method], _p(words), prog.n, _p(file))
+        core.run(LUTS[method], _p(words), prog.groups, _p(file))
         assert (file[prog.out_rows] == want).all(), label
 
 
@@ -155,10 +161,10 @@ def _canon(graph, nid):
 @pytest.mark.parametrize("fmt", [F8, F9], ids=["hobflops8", "hobflops9"])
 def test_schedule_groups_and_rows(fmt, kind):
     """Follow every row through the groups: a gate never reads a value
-    written inside its own group, every row a gate reads holds the
-    gate's operand when the group starts (so reusing a row the group
-    reads for the last time is safe), no gate writes an input row, and
-    the output rows hold the outputs at the end."""
+    written inside its own group, no row is both read and written inside
+    a group (so its slots run in any order), every row a gate reads
+    holds the gate's operand, no gate writes an input row, and the
+    output rows hold the outputs at the end."""
     if kind == "add":
         graph = fused_add_lowered(fmt, 2, False, RNE).graph
         buses = ["acc", "p0", "p1"]
@@ -191,6 +197,8 @@ def test_schedule_groups_and_rows(fmt, kind):
             want += [FALSE] * (3 - len(want))
             assert [holds.get(r) for r in g.src] == want, g
             assert g.dst >= n_inputs and g.dst < nrows
+        assert not {g.dst for g in grp} & {r for g in grp for r in g.src}
+        assert len({g.dst for g in grp}) == len(grp)
         for g in grp:
             holds[g.dst] = g.node
         done |= made
