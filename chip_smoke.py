@@ -24,10 +24,11 @@ versions:
 4. compares each kernel with its plain version, bit-exact, on the 1x1
    512->512 layer and on the 3x3 layer at cin 64;
 5. times each kernel with CUDA events at the main path's shapes, and
-   the stack's steady requests; for the fused kernel also its
-   serial-chain bound (C steps x the
-   chain body's accumulator-path depth a step x L at the SM clock), the
-   share of the larger bound and the cycles a MAC step;
+   the stack's steady requests; for both MAC kernels also the
+   serial-chain bound (C steps x the add-only chain's accumulator-path
+   depth a step x L at the SM clock), the share of the larger bound and
+   the cycles a MAC step, and for the interpreter its design's
+   shared-memory floor (four accesses a warp-gate);
 6. traces requests of batch 1 and 4 with ``torch.profiler``: the
    device's busy share and device time and launches by kernel group;
 7. serves qwen2-0.5b (24 layers, d_model 896, vocab 151936; random
@@ -94,10 +95,13 @@ LM_ARCH = "qwen2-0.5b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 128, 16
 DQ_MS = (LM_BATCH * LM_PROMPT, LM_BATCH)   # prefill rows, decode-step rows
 # The earlier designs' times on an H100 80GB HBM3 at 700 W, as PERF.md
-# gives them: fused_mac before its warp-specialised redesign at batch 1,
-# and the dequant matmul's f32 FMA tiles summed over the 8 points.
+# gives them: fused_mac before its warp-specialised redesign and
+# bitslice_mac before its redesign as a grouped interpreter, at batch 1
+# (1x1 and 3x3 layers), and the dequant matmul's f32 FMA tiles summed
+# over the 8 points.
 # Printed, marked as not measured in this run.
 EARLIER_FUSED_MS = {"1x1": 0.428, "3x3": 4.526}
+EARLIER_INTERP_MS = {"1x1": 63.750, "3x3": 574.461}
 EARLIER_DQ_MS = 1.958
 # The dequant matmul's largest error against its plain version, in units
 # of the float32 summation bound, may be at most this share of that of a
@@ -404,13 +408,22 @@ def main() -> int:
                   f"{rep['smem']} B static shared, spill stores/loads "
                   f"{rep.get('spill_stores')}/{rep.get('spill_loads')} B")
     blk = _build.launch_blocks(hw * hw, c, c // 32)
-    p, m, k = blk["p_block"], blk["m_block"], blk["c_unroll"]
-    ct = _build.c_tile(blk["c_block"], k)
-    prog = interp.mac_program(fmt, k, False, RNE)
-    print(f"bitslice_mac at the main path's blocks {blk}: "
-          f"{p * m} threads, "
-          f"{interp.smem_bytes(prog.nslots, fmt.nbits, prog.nout, p, m, ct)}"
-          f" B dynamic shared memory")
+    p, m, ik = blk["p_block"], blk["m_block"], blk["c_unroll"]
+    pw = _build.INTERP_PRODUCERS
+    progs = interp.device_programs(fmt, ik, False, RNE, interp.LIB, "cuda")
+    gs = interp.lanes_a_pair(p, m, pw)
+    ct = interp.ring_slot(progs, fmt.nbits, p, m, blk["c_block"], ik, pw,
+                          gs)
+    print(f"bitslice_mac at the main path's blocks {blk}: {p * m} chains, "
+          f"{gs} lanes a pair of them, "
+          f"{interp.block_threads(p, m, pw, gs)} threads, ring slot {ct} "
+          f"channels, "
+          f"{interp.smem_bytes(progs, fmt.nbits, p, m, ct, pw, gs)} B "
+          f"dynamic shared memory; {interp.LIB} programs: add-only chain "
+          f"{progs.add.n} gates in {progs.add.groups} groups, "
+          f"{progs.add.nrows} rows; multiplier {progs.mul.n} gates in "
+          f"{progs.mul.groups} groups, {progs.mul.nrows} rows "
+          f"({progs.program_bytes} B)")
     fblk = _build.launch_blocks(hw * hw, c, c // 32, kernel="fused_mac")
     fk = fused.fused_chain_k(fmt)
     fp, fm = fblk["p_block"], fblk["m_block"]
@@ -509,7 +522,7 @@ def main() -> int:
         "bitslice_mac": dict(
             route="cuda", source="src/repro_torch/csrc/bitslice_mac.cu",
             replaces="src/repro/kernels/bitslice_mac/kernel.py:140",
-            k=_build.CHAIN_DEPTH, launch=lambda i, w:
+            k=ik, launch=lambda i, w:
                 interp.bitslice_mac_cuda(i, w, fmt=fmt),
             plain=lambda i, w: interp._bitslice_mac_torch(
                 i, w, fmt=fmt, extended=False, rounding=RNE)),
@@ -582,8 +595,42 @@ def main() -> int:
                   f"Mw={Mw}: {ms:.3f} ms; bound {max(ops_ms, bytes_ms):.4f}"
                   f" ms ({ops:.3e} LOP3 ops, {nbytes / 1e6:.1f} MB)")
     sm_mhz = float(nvidia_smi("clocks.sm").split()[0])
+    # The interpreter's own floor, a property of its design: each gate of
+    # a warp of 32 lane words costs at least four shared-memory accesses
+    # (three operands, one result), one 128-byte wavefront each a cycle
+    # an SM.
+    add_depth = acc_depth(fused.fused_add_lowered(fmt, ik, False, RNE)
+                          .graph) / ik
     for name, kd in kernels.items():
         extra = {}
+        if name == "bitslice_mac":
+            for shape in conv_ops:
+                d = kd[shape]
+                warp_gates = d["P"] * d["Mw"] / 32 * (
+                    d["C"] / ik * progs.add.n + d["C"] * progs.mul.n)
+                d["smem_floor_ms"] = 4 * warp_gates / (n_sm * sm_mhz * 1e3)
+                d["chain_bound_ms"] = d["C"] * add_depth * lop3_l / \
+                    (sm_mhz * 1e3)
+                d["cycles_a_mac"] = d["ms"] * sm_mhz * 1e3 / d["C"]
+                top = max(d["bound_ms"], d["chain_bound_ms"])
+                print(f"bitslice_mac {shape}: {d['ms']:.4f} ms; operations "
+                      f"bound {d['bound_ms']:.4f} ms, serial-chain bound "
+                      f"{d['chain_bound_ms']:.4f} ms ({d['C']} steps x "
+                      f"{add_depth:.1f} gates x L {lop3_l:.2f} at "
+                      f"{sm_mhz:.0f} MHz), share of the larger "
+                      f"{top / d['ms']:.3f}; the design's shared-memory "
+                      f"floor {d['smem_floor_ms']:.4f} ms ({warp_gates:.4g} "
+                      f"warp-gates x 4 accesses, {n_sm} SMs); "
+                      f"{d['cycles_a_mac']:.0f} cycles a MAC step")
+            print(f"bitslice_mac before its redesign (PERF.md, not this "
+                  f"run): {EARLIER_INTERP_MS['1x1']} / "
+                  f"{EARLIER_INTERP_MS['3x3']} ms")
+            extra = {"chain_bound_ms": kd["1x1"]["chain_bound_ms"],
+                     "chain_bound_ms_3x3": kd["3x3"]["chain_bound_ms"],
+                     "cycles_a_mac_3x3": kd["3x3"]["cycles_a_mac"],
+                     "smem_floor_ms": kd["1x1"]["smem_floor_ms"],
+                     "smem_floor_ms_3x3": kd["3x3"]["smem_floor_ms"],
+                     "sm_mhz": sm_mhz}
         if name == "fused_mac":
             for shape in conv_ops:
                 d = kd[shape]

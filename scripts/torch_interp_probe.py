@@ -33,10 +33,10 @@ conv layers (3x3: P=196, C=4608, Mw=16; 1x1: C=512) in hobflops9:
    product copies.  A serialised account: its sum is above the
    pipelined kernel's own cycles, which are printed beside it.
 5. **Launch defaults.**  A sweep of chains a block (``p_block x
-   m_block``: 4 chains, 8 lanes each, are one chain warp), ring slot
-   channels (``c_block``) and producer warps a chain warp at both
-   layers, batch 1 and 4; ``_build.launch_blocks``' interpreter defaults
-   and ``_build.INTERP_PRODUCERS`` cite it.
+   m_block``: 8 chains, 8 lanes a pair, are one chain warp), ring slot
+   channels (``c_block``), producer warps a chain warp and lanes a pair
+   of chains at both layers, batch 1 and 4; ``_build.launch_blocks``'
+   interpreter defaults and ``_build.INTERP_PRODUCERS`` cite it.
 
 Everything is written to ``chiprun_out/interp_probe.json`` too.  The SM
 clock is read with ``nvidia-smi`` after the timings.
@@ -78,7 +78,7 @@ __global__ void lut_bench(const uint32_t* __restrict__ imms, uint32_t* out,
   for (int i = threadIdx.x; i <= %N%; i += blockDim.x)
     imm_s[i] = imms[i];
   for (int i = threadIdx.x; i < 256; i += blockDim.x)
-    bsi::lut_masks(i, masks[2 * i], masks[2 * i + 1]);
+    bsi::mask_row(masks, i);
   __syncthreads();
   uint32_t x[ILP];
   for (int j = 0; j < ILP; ++j) x[j] = threadIdx.x * 0x9E3779B9u + j;
@@ -92,7 +92,7 @@ __global__ void lut_bench(const uint32_t* __restrict__ imms, uint32_t* out,
 #pragma unroll
     for (int j = 0; j < ILP; ++j) {
       if constexpr (LUT == bsi::LUT_MUX)
-        x[j] = bsi::lut_mux(masks[2 * imm], masks[2 * imm + 1], y, z, x[j]);
+        x[j] = bsi::lut_mux(masks[imm], masks[256 + imm], y, z, x[j]);
       else if constexpr (LUT == bsi::LUT_SWITCH)
         x[j] = bsi::lut_switch(imm, y, z, x[j]);
       else
@@ -219,9 +219,10 @@ def main() -> int:
                                     bytes=pr.program_bytes)
                           for lib, pr in progs.items()}
 
-    def run(fn, ops, pr, p_block, m_block, c_block, pw, out, cnt=None):
+    def run(fn, ops, pr, p_block, m_block, c_block, pw, out, cnt=None,
+            gs=None):
         interp.launch(fn, *ops, out, pr, k, p_block, m_block, c_block, pw,
-                      cnt)
+                      cnt, gs)
 
     layers = {}
     for batch in (1, 4):
@@ -275,8 +276,8 @@ def main() -> int:
         ops = layers[(name, 1)]
         tp, tw, pw = dflt["p_block"], dflt["m_block"], dflt["pw"]
         grid = -(-(HW * HW) // tp) * -(-MW // tw)
-        gs = interp.lanes_a_chain(tp, tw, pw)
-        ncw = interp.padded_chains(tp, tw, gs) * gs // 32
+        gs = interp.lanes_a_pair(tp, tw, pw)
+        ncw = interp.block_threads(tp, tw, 0, gs) // 32
         nw = ncw * (1 + pw)
         cnt = torch.zeros(grid * nw * 8, dtype=torch.int64, device="cuda")
         out = new_out(ops)
@@ -311,37 +312,39 @@ def main() -> int:
 
     # 5. launch defaults
     result["sweep"] = []
-    for p_block, m_block in ((1, 4), (1, 8), (1, 16), (2, 16)):
-        for c_block in (4, 8):
-            for pw in (1, 2):
-                cfg = dict(p_block=p_block, m_block=m_block,
-                           c_block=c_block, pw=pw)
-                row = dict(cfg)
-                for (name, batch), ops in layers.items():
-                    out = new_out(ops)
-                    try:
-                        ms = time_cuda(lambda: run(
-                            launch["mux"], ops, progs["avx512"], **cfg,
-                            out=out), REPS)
-                    except ValueError as e:     # does not fit a block
-                        print(f"sweep {cfg}: {e}")
-                        row = None
-                        break
-                    if not torch.equal(out, want[(name, batch)]):
-                        print(f"sweep {cfg} {name} b{batch}: planes differ",
-                              file=sys.stderr)
-                        return 1
-                    row[f"{name}_b{batch}"] = ms
-                if row is None:
-                    continue
-                row["stack_b1"] = row["3x3_b1"] + 2 * row["1x1_b1"]
-                row["stack_b4"] = row["3x3_b4"] + 2 * row["1x1_b4"]
-                result["sweep"].append(row)
-                print(f"sweep p_block {p_block} m_block {m_block} "
-                      f"c_block {c_block} producers {pw}: 3x3 b1 {row['3x3_b1']:.3f} b4 "
-                      f"{row['3x3_b4']:.3f}; 1x1 b1 {row['1x1_b1']:.3f} b4 "
-                      f"{row['1x1_b4']:.3f}; stack b1 {row['stack_b1']:.3f} "
-                      f"b4 {row['stack_b4']:.3f} ms")
+    configs = [dict(p_block=p, m_block=m, c_block=c, pw=pw, gs=gs)
+               for p, m in ((1, 8), (1, 16), (2, 16))
+               for c in (4, 8) for pw in (1, 2) for gs in (8,)]
+    configs += [dict(p_block=p, m_block=m, c_block=8, pw=1, gs=gs)
+                for p, m in ((1, 16), (2, 16), (4, 16)) for gs in (4, 2)]
+    for cfg in configs:
+        row = dict(cfg)
+        for (name, batch), ops in layers.items():
+            out = new_out(ops)
+            try:
+                ms = time_cuda(lambda: run(launch["mux"], ops,
+                                           progs["avx512"], **cfg, out=out),
+                               REPS)
+            except ValueError as e:     # does not fit a block
+                print(f"sweep {cfg}: {e}")
+                row = None
+                break
+            if not torch.equal(out, want[(name, batch)]):
+                print(f"sweep {cfg} {name} b{batch}: planes differ",
+                      file=sys.stderr)
+                return 1
+            row[f"{name}_b{batch}"] = ms
+        if row is None:
+            continue
+        row["stack_b1"] = row["3x3_b1"] + 2 * row["1x1_b1"]
+        row["stack_b4"] = row["3x3_b4"] + 2 * row["1x1_b4"]
+        result["sweep"].append(row)
+        print(f"sweep p_block {cfg['p_block']} m_block {cfg['m_block']} "
+              f"c_block {cfg['c_block']} producers {cfg['pw']} lanes a pair "
+              f"{cfg['gs']}: 3x3 b1 {row['3x3_b1']:.3f} b4 "
+              f"{row['3x3_b4']:.3f}; 1x1 b1 {row['1x1_b1']:.3f} b4 "
+              f"{row['1x1_b4']:.3f}; stack b1 {row['stack_b1']:.3f} b4 "
+              f"{row['stack_b4']:.3f} ms")
     clock = float(nvidia_smi("clocks.sm").split()[0])
     result["clock_mhz"] = clock
     for v in result["variants"]:

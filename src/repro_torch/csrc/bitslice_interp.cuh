@@ -8,7 +8,8 @@
 // and the schedule; the two must agree on every constant here.
 //
 // A program runs over a file of rows, one 32-bit lane word a row for
-// each of the WD lane words of a warp (row r of word q at r * WD + q):
+// each of the WD lane words of a warp (row r of word q at r * WD + q),
+// each lane running two adjacent words:
 // row 0 holds 0, row 1 all ones, rows 2.. the program's input buses,
 // then temporaries.  Every gate is a LUT3 over three rows,
 // written to a fourth, 8 bytes:
@@ -16,9 +17,10 @@
 //   y = c | d << 12 | 1 << 24        (an empty slot is all zero)
 // Gates come in groups of GROUP_MAX slots that read nothing written in
 // their own group and write nothing the group reads, so a group's slots
-// run in any order: the kernel gives each lane word GS lanes (GS divides
-// GROUP_MAX, WD = 32 / GS), lane s of a word runs slots s, s + GS, ... of
-// every group, and the warp syncs once a group.
+// run in any order: the kernel gives each pair of lane words GS lanes
+// (GS divides GROUP_MAX, WD = 64 / GS), lane s of a pair runs slots s,
+// s + GS, ... of every group on both words, and the warp syncs once a
+// group.
 
 #pragma once
 #include <cstdint>
@@ -39,7 +41,7 @@ namespace bsi {
 
 constexpr int ROW_BITS = 12;
 constexpr uint32_t ROW_MASK = (1u << ROW_BITS) - 1u;
-constexpr int GROUP_MAX = 8;   // slots a group: lanes a lane word at most
+constexpr int GROUP_MAX = 8;   // slots a group: lanes a word pair at most
 constexpr int ZERO_ROW = 0, ONES_ROW = 1, FIRST_INPUT_ROW = 2;
 
 // Run-time LUT3 evaluators (the kernel takes one; scripts/
@@ -88,6 +90,13 @@ BSI_FN void lut_masks(uint32_t imm, uint4& lo, uint4& hi) {
   hi.w = 0u - ((imm >> 7) & 1u);
 }
 
+// Row imm of the mask table: its words 0-3 at masks[imm], 4-7 at
+// masks[256 + imm], so the 16-byte halves of different truth tables
+// spread over all eight 16-byte bank groups.
+BSI_FN void mask_row(uint4* masks, uint32_t imm) {
+  lut_masks(imm, masks[imm], masks[256 + imm]);
+}
+
 // Branch-free: seven lop3 muxes over the eight truth-table masks, c
 // selecting first, so only three of them wait on the last operand.
 BSI_FN uint32_t lut_mux(const uint4& lo, const uint4& hi, uint32_t a,
@@ -134,27 +143,33 @@ struct NoProbe {
   BSI_FN void mark(int, uint32_t) {}
 };
 
-// One slot of a group: the gate w over the file of this lane's word (f:
-// its row 0; row r at f[r * WD]), `masks` the 256-row mask table
-// (LUT_MUX only).  An empty slot does nothing.
+// One slot of a group for a lane's two lane words: the gate w over the
+// file (f: the lane's two words of row 0, row r at f + r * WD), `masks`
+// the mask table (mask_row; LUT_MUX only).  An empty slot does nothing.
 template <int LUT, int WD, class Probe>
 BSI_FN void run_gate(uint2 w, uint32_t* __restrict__ f,
                      const uint4* __restrict__ masks, Probe& pr) {
   if (!valid(w)) return;
-  const uint32_t a = f[row_a(w) * WD], b = f[row_b(w) * WD],
-                 c = f[row_c(w) * WD];
-  if constexpr (Probe::SERIAL) pr.mark(PH_LOADS, a ^ b ^ c);
+  const uint2 a = *reinterpret_cast<const uint2*>(f + row_a(w) * WD);
+  const uint2 b = *reinterpret_cast<const uint2*>(f + row_b(w) * WD);
+  const uint2 c = *reinterpret_cast<const uint2*>(f + row_c(w) * WD);
+  if constexpr (Probe::SERIAL) pr.mark(PH_LOADS, a.x ^ b.x ^ c.x ^ a.y ^
+                                                     b.y ^ c.y);
   const uint32_t imm = imm_of(w);
-  uint32_t v;
+  uint2 v;
   if constexpr (LUT == LUT_MUX) {
-    v = lut_mux(masks[2 * imm], masks[2 * imm + 1], a, b, c);
+    const uint4 lo = masks[imm], hi = masks[256 + imm];
+    v.x = lut_mux(lo, hi, a.x, b.x, c.x);
+    v.y = lut_mux(lo, hi, a.y, b.y, c.y);
   } else if constexpr (LUT == LUT_SWITCH) {
-    v = lut_switch(imm, a, b, c);
+    v.x = lut_switch(imm, a.x, b.x, c.x);
+    v.y = lut_switch(imm, a.y, b.y, c.y);
   } else {
-    v = lop3_c(a, b, c, imm);
+    v.x = lop3_c(a.x, b.x, c.x, imm);
+    v.y = lop3_c(a.y, b.y, c.y, imm);
   }
-  if constexpr (Probe::SERIAL) pr.mark(PH_EVAL, v);
-  f[row_d(w) * WD] = v;
+  if constexpr (Probe::SERIAL) pr.mark(PH_EVAL, v.x ^ v.y);
+  *reinterpret_cast<uint2*>(f + row_d(w) * WD) = v;
   if constexpr (Probe::SERIAL) pr.mark(PH_STORES, 0u);
 }
 

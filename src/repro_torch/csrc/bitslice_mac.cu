@@ -28,9 +28,11 @@
 //
 // * Lanes across gates: the netlist is levelized into groups of up to 8
 //   gates that neither read what the group writes nor write what it
-//   reads; each lane word gets GS lanes (8 unless the block's chains
-//   need fewer), lane s running slots s, s + GS, ... of every group, so
-//   a warp covers 32 / GS lane words and syncs once a group.
+//   reads; each pair of adjacent lane words gets GS lanes (8 unless the
+//   block's chains need fewer), lane s running slots s, s + GS, ... of
+//   every group on both words with 64-bit loads and stores (one decode
+//   and one mask-table read for two words), so a warp covers 64 / GS
+//   lane words and syncs once a group.
 // * Both programs staged once a block into shared memory by cp.async,
 //   8 bytes a gate, each lane reading its next slot while it runs this
 //   one.
@@ -72,7 +74,7 @@ struct Layout {
 };
 
 __host__ __device__ inline int padded_chains(int tp, int tw, int gs) {
-  const int wd = 32 / gs;
+  const int wd = 64 / gs;
   return (tp * tw + wd - 1) / wd * wd;
 }
 
@@ -181,7 +183,7 @@ __device__ __forceinline__ void run_program(const uint2* __restrict__ prog,
                                             uint32_t* __restrict__ f,
                                             const uint4* __restrict__ masks,
                                             Probe& pr) {
-  constexpr int G = bsi::GROUP_MAX, N = G / GS, WD = 32 / GS;
+  constexpr int G = bsi::GROUP_MAX, N = G / GS, WD = 64 / GS;
   uint2 w[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) w[j] = prog[slot + j * GS];
@@ -209,7 +211,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     bitslice_mac_kernel(const Args A) {
   using Probe = typename std::conditional<PROBE, ClockProbe,
                                           bsi::NoProbe>::type;
-  constexpr int WD = 32 / GS;                // lane words a warp
+  constexpr int WD = 64 / GS;                // lane words a warp
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout(A.blob_words, A.add_rows, A.mul_rows, A.nin,
                           A.nout, A.tp, A.tw, A.ct, A.pw, GS);
@@ -222,7 +224,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   const int nin = A.nin, nout = A.nout, k = A.k, C = A.C, ct = A.ct;
   const int tp = A.tp, tw = A.tw;
   const int nch = padded_chains(tp, tw, GS); // chains, whole warps
-  const int nl = nch * GS, np = A.pw * nl;   // chain, producer threads
+  const int nl = nch / WD * 32, np = A.pw * nl;   // chain, producer
   const int nthr = nl + np;
   const int tid = threadIdx.x, lane = tid & 31;
   const int slot = lane % GS;                // this lane's first slot
@@ -236,24 +238,26 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     cp_async16(smem + L.blob + 16 * i, A.blob + 4 * i);
   hf::cp_async_commit();
   for (int i = tid; i < 256; i += nthr)
-    bsi::lut_masks(i, masks[2 * i], masks[2 * i + 1]);
+    bsi::mask_row(masks, i);
   const bool chain = tid < nl;
-  // This lane's chain (lane word of the block) and its file: warp wi of
-  // the chain warps, or of one producer group, serves chains wi*WD ...
+  // This lane's chains (two adjacent lane words of the block) and its
+  // file: warp wi of the chain warps, or of one producer group, serves
+  // chains wi*WD ...
   const int wi = (chain ? tid : (tid - nl) % nl) / 32;
-  const int ch = wi * WD + lane / GS;
+  const int ch = wi * WD + 2 * (lane / GS);
   uint32_t* f = chain
       ? reinterpret_cast<uint32_t*>(smem + L.cfile) + wi * A.add_rows * WD +
-            lane / GS
+            2 * (lane / GS)
       : reinterpret_cast<uint32_t*>(smem + L.pfile) +
-            ((tid - nl) / 32) * A.mul_rows * WD + lane / GS;
+            ((tid - nl) / 32) * A.mul_rows * WD + 2 * (lane / GS);
+  auto row = [&](int r) { return reinterpret_cast<uint2*>(f + r * WD); };
   if (slot == 0) {
-    f[bsi::ZERO_ROW * WD] = 0u;
-    f[bsi::ONES_ROW * WD] = ~0u;
+    *row(bsi::ZERO_ROW) = make_uint2(0u, 0u);
+    *row(bsi::ONES_ROW) = make_uint2(~0u, ~0u);
   }
   if (chain)   // the accumulator rows: +0
     for (int b = slot; b < nout; b += GS)
-      f[(bsi::FIRST_INPUT_ROW + b) * WD] = 0u;
+      *row(bsi::FIRST_INPUT_ROW + b) = make_uint2(0u, 0u);
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       hf::mbar_init(&full[s], np);
@@ -264,8 +268,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   hf::cp_async_wait<0>();
   __syncthreads();
 
-  const int cl = ch < tp * tw ? ch : 0;      // padded chains run chain 0
-  const int ty = cl / tw, tx = cl % tw;
+  // Padded chains run chain 0.
+  const int cl0 = ch < tp * tw ? ch : 0, cl1 = ch + 1 < tp * tw ? ch + 1 : 0;
+  const int ty0 = cl0 / tw, tx0 = cl0 % tw, ty1 = cl1 / tw, tx1 = cl1 % tw;
   Probe pr;
   unsigned long long extra[3] = {0, 0, 0};   // probe: waits, copies, stage
   long long steps = 0;
@@ -289,7 +294,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         if constexpr (PROBE) c0 = clock64();
         const uint32_t* src = rs + (size_t)cc * nout * nch;
         for (int i = slot; i < k * nout; i += GS)
-          f[(in_row + i) * WD] = src[i * nch];
+          *row(in_row + i) = *reinterpret_cast<const uint2*>(src + i * nch);
         __syncwarp();
         if constexpr (PROBE) {
           extra[1] += ClockProbe::clock_after(f[in_row * WD]) - c0;
@@ -298,7 +303,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         run_program<LUT, GS>(prog, A.add_groups, slot, f, masks, pr);
         if constexpr (PROBE) c0 = clock64();
         for (int b = slot; b < nout; b += GS)
-          f[(bsi::FIRST_INPUT_ROW + b) * WD] = f[aout[b] * WD];
+          *row(bsi::FIRST_INPUT_ROW + b) = *row(aout[b]);
         __syncwarp();
         if constexpr (PROBE) {
           extra[1] += ClockProbe::clock_after(f[bsi::FIRST_INPUT_ROW * WD]) -
@@ -308,11 +313,13 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       }
       hf::mbar_arrive(&empty[s]);
     }
-    const int p = p0 + ty, w = w0 + tx;
-    if (ch < tp * tw && p < A.P && w < A.Mw) {
-      for (int b = slot; b < nout; b += GS)
-        A.out[((size_t)b * A.P + p) * A.Mw + w] =
-            (int32_t)f[(bsi::FIRST_INPUT_ROW + b) * WD];
+    for (int e = 0; e < 2; ++e) {
+      const int p = p0 + (e ? ty1 : ty0), w = w0 + (e ? tx1 : tx0);
+      if (ch + e < tp * tw && p < A.P && w < A.Mw) {
+        for (int b = slot; b < nout; b += GS)
+          A.out[((size_t)b * A.P + p) * A.Mw + w] =
+              (int32_t)f[(bsi::FIRST_INPUT_ROW + b) * WD + e];
+      }
     }
   } else {
     // ---- producer warps: stage C tiles and multiply ahead ------------
@@ -345,20 +352,24 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       // Products of every channel the chain reads: up to the tile's end
       // rounded up to the chain depth (zero words past C).
       const int cend = min(ct, (C - t * ct + k - 1) / k * k);
-      const uint32_t* xw = rs + tx * pitch;
-      const uint32_t* yi = rs + (tw + ty) * pitch;
+      const uint32_t* xw0 = rs + tx0 * pitch;
+      const uint32_t* xw1 = rs + tx1 * pitch;
+      const uint32_t* yi0 = rs + (tw + ty0) * pitch;
+      const uint32_t* yi1 = rs + (tw + ty1) * pitch;
       uint32_t* pp = ring + (size_t)s * ct * nout * nch + ch;
       for (int c = g; c < cend; c += A.pw) {
         for (int b = slot; b < nin; b += GS) {
-          f[(bsi::FIRST_INPUT_ROW + b) * WD] = xw[c * nin + b];
-          f[(y_row + b) * WD] = yi[c * nin + b];
+          const int e = c * nin + b;
+          *row(bsi::FIRST_INPUT_ROW + b) = make_uint2(xw0[e], xw1[e]);
+          *row(y_row + b) = make_uint2(yi0[e], yi1[e]);
         }
         __syncwarp();
         if constexpr (PROBE) pr.start();
         run_program<LUT, GS>(prog, A.mul_groups, slot, f, masks, pr);
         if constexpr (PROBE) c0 = clock64();
         for (int b = slot; b < nout; b += GS)
-          pp[((size_t)c * nout + b) * nch] = f[mout[b] * WD];
+          *reinterpret_cast<uint2*>(pp + ((size_t)c * nout + b) * nch) =
+              *row(mout[b]);
         if constexpr (PROBE) {
           extra[1] += clock64() - c0;
           ++steps;
@@ -391,7 +402,8 @@ int launch_gs(const Args& a, void* stream) {
       bitslice_mac_kernel<LUT, PROBE, GS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
-  const int threads = (1 + a.pw) * padded_chains(a.tp, a.tw, GS) * GS;
+  const int threads =
+      (1 + a.pw) * padded_chains(a.tp, a.tw, GS) / (64 / GS) * 32;
   const dim3 grid((a.Mw + a.tw - 1) / a.tw, (a.P + a.tp - 1) / a.tp);
   bitslice_mac_kernel<LUT, PROBE, GS>
       <<<grid, threads, L.total, (cudaStream_t)stream>>>(a);

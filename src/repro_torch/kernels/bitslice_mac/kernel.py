@@ -206,28 +206,28 @@ def device_programs(fmt: FPFormat, k: int, extended: bool, rounding: str,
 STAGES = 3          # ring slots of products (hf::STAGES)
 
 
-LANES_A_CHAIN = (8, 4, 2, 1)    # lanes a chain the kernel is built for
+LANES_A_PAIR = (8, 4, 2, 1)     # lanes a pair of chains the kernel runs
 
 
 def padded_chains(p_block: int, m_block: int, gs: int) -> int:
     """A block's ``p_block x m_block`` chains (lane words) padded to
-    whole warps of ``32 // gs`` chains, ``gs`` lanes each."""
-    wd = 32 // gs
+    whole warps of ``64 // gs`` chains: ``gs`` lanes a pair of them."""
+    wd = 64 // gs
     return -(-p_block * m_block // wd) * wd
 
 
 def block_threads(p_block: int, m_block: int, pw: int, gs: int) -> int:
     """Threads of one interpreter block: the chain warps and ``pw``
     producer warps for each."""
-    return (1 + pw) * padded_chains(p_block, m_block, gs) * gs
+    return (1 + pw) * padded_chains(p_block, m_block, gs) * gs // 2
 
 
-def lanes_a_chain(p_block: int, m_block: int, pw: int) -> int:
-    """Lanes a chain: :data:`GROUP_MAX` (one a slot of a group) unless
-    the block's chains would then need more than
+def lanes_a_pair(p_block: int, m_block: int, pw: int) -> int:
+    """Lanes a pair of chains: :data:`GROUP_MAX` (one a slot of a group)
+    unless the block's chains would then need more than
     ``_build.INTERP_MAX_THREADS`` threads, else the most that fit; at
-    one lane a chain the block is checked as it is."""
-    return next((gs for gs in LANES_A_CHAIN if block_threads(
+    one lane a pair the block is checked as it is."""
+    return next((gs for gs in LANES_A_PAIR if block_threads(
         p_block, m_block, pw, gs) <= _build.INTERP_MAX_THREADS), 1)
 
 
@@ -261,15 +261,15 @@ def ring_slot(progs: DevicePrograms, nin: int, p_block: int, m_block: int,
 
 def launch(fn, i_masks, w_planes, out, progs: DevicePrograms, k: int,
            p_block: int, m_block: int, c_block: int, pw: int,
-           probe=None) -> None:
+           probe=None, gs: int | None = None) -> None:
     """Launch ``fn`` (a bound C entry) on the current stream for a block
-    of these parameters (lanes a chain from :func:`lanes_a_chain`, the
-    ring slot from :func:`ring_slot`), after checking it: raises before
-    launching what the card would refuse.  ``probe``: the probe entry's
-    counter tensor."""
+    of these parameters (lanes a pair ``gs``, by default
+    :func:`lanes_a_pair`; the ring slot from :func:`ring_slot`), after
+    checking it: raises before launching what the card would refuse.
+    ``probe``: the probe entry's counter tensor."""
     P, C, nin = i_masks.shape
     Mw = w_planes.shape[2]
-    gs = lanes_a_chain(p_block, m_block, pw)
+    gs = gs or lanes_a_pair(p_block, m_block, pw)
     ct = ring_slot(progs, nin, p_block, m_block, c_block, k, pw, gs)
     smem = smem_bytes(progs, nin, p_block, m_block, ct, pw, gs)
     _build.check_blocks(p_block, m_block, ct, smem,
@@ -296,9 +296,9 @@ def bitslice_mac_cuda(i_masks: torch.Tensor, w_planes: torch.Tensor, *,
     w_planes [C, NIN, Mw] -> [NOUT, P, Mw] int32.
 
     On CUDA tensors this launches ``csrc/bitslice_mac.cu`` (blocks over
-    ``m_block x p_block`` (row, lane word) chains, :func:`lanes_a_chain`
-    lanes each, and ``_build.INTERP_PRODUCERS`` producer warps a chain
-    warp; ring slots of ``c_block`` channels (:func:`ring_slot`); missing
+    ``m_block x p_block`` (row, lane word) chains, :func:`lanes_a_pair`
+    lanes a pair of them, and ``_build.INTERP_PRODUCERS`` producer warps
+    a chain warp; ring slots of ``c_block`` channels (:func:`ring_slot`); missing
     values from
     :func:`_build.launch_blocks`); on CPU tensors it runs the plain
     version.  Any shape is accepted — the kernel masks the ragged P, Mw

@@ -379,7 +379,7 @@ def test_launch_blocks_are_checked_before_launch():
     # The interpreter: barriers, both programs, the LUT3 mask table, two
     # raw C tiles, a 3-slot product ring and a file of rows for each
     # chain warp and producer warp, a row one word a chain (chains padded
-    # to whole warps of 32 / gs, gs lanes a chain).
+    # to whole warps of 64 / gs, gs lanes a pair of chains).
     progs = interp.device_programs(F9, 4, False, RNE, "avx512", "cpu")
     nin, nout = F9.nbits, F9.mult_out().nbits
     add, mul = progs.add, progs.mul
@@ -391,13 +391,14 @@ def test_launch_blocks_are_checked_before_launch():
         + 4 * 2 * mul.nrows * 64
     assert interp.padded_chains(3, 7, 8) == 24
     assert interp.padded_chains(3, 7, 2) == 32
-    # Eight lanes a chain unless the block would pass 1024 threads.
-    assert interp.block_threads(4, 16, 2, 8) == 1536
-    assert [interp.lanes_a_chain(p, m, pw) for p, m, pw in
-            ((2, 8, 1), (4, 16, 2), (3, 32, 1), (16, 32, 1))] == [8, 4, 4, 1]
+    # Eight lanes a pair of chains unless the block would pass 1024
+    # threads.
+    assert interp.block_threads(4, 16, 2, 8) == 768
+    assert [interp.lanes_a_pair(p, m, pw) for p, m, pw in
+            ((2, 8, 1), (4, 16, 4), (3, 32, 1), (16, 32, 1))] == [8, 4, 8, 2]
     with pytest.raises(ValueError, match="blocks p="):
-        _build.check_blocks(17, 32, 8, 0,
-                            threads=interp.block_threads(17, 32, 1, 1),
+        _build.check_blocks(33, 32, 8, 0,
+                            threads=interp.block_threads(33, 32, 1, 1),
                             max_threads=_build.INTERP_MAX_THREADS)
     # A ring slot shrinks by chain steps until the block fits.
     assert interp.ring_slot(progs, nin, 2, 16, 7, 4, 1, 8) == 8

@@ -49,16 +49,16 @@ extern "C" void lut_all(int method, const uint32_t* a, const uint32_t* b,
     }
 }
 // Run a program over a file of WD lane words (row r of word q at
-// r * WD + q), group by group, every slot of every word as a warp's
+// r * WD + q), group by group, every slot of every word pair as a warp's
 // lanes run them: a group's slots may run in any order.
 template <int LUT>
 static void run_t(const uint2* prog, int groups, uint32_t* file) {
   constexpr int WD = 4;
   uint4 masks[512];
-  for (int i = 0; i < 256; ++i) bsi::lut_masks(i, masks[2 * i], masks[2 * i + 1]);
+  for (int i = 0; i < 256; ++i) bsi::mask_row(masks, i);
   bsi::NoProbe pr;
   for (int g = 0; g < groups; ++g)
-    for (int q = 0; q < WD; ++q)
+    for (int q = 0; q < WD; q += 2)
       for (int s = 0; s < bsi::GROUP_MAX; ++s)
         bsi::run_gate<LUT, WD>(prog[g * bsi::GROUP_MAX + s], file + q, masks,
                                pr);
@@ -81,8 +81,9 @@ def core(tmp_path_factory):
     d = tmp_path_factory.mktemp("interp")
     cpp, so = d / "core.cpp", d / "core.so"
     cpp.write_text(_HARNESS)
-    subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-I",
-                    str(CSRC), "-o", str(so), str(cpp)], check=True)
+    subprocess.run([gxx, "-O1", "-std=c++17", "-fno-strict-aliasing",
+                    "-shared", "-fPIC", "-I", str(CSRC), "-o", str(so),
+                    str(cpp)], check=True)
     return ctypes.CDLL(str(so))
 
 
@@ -132,8 +133,9 @@ def _programs():
 @pytest.mark.parametrize("method", list(LUTS))
 def test_header_runs_encoded_programs(core, method):
     """The kernel's gate, built from the header, runs each encoded chain
-    step slot by slot over a file of 4 lane words and leaves every
-    output row equal to ``eval_netlist`` of the netlist it encodes."""
+    step slot by slot over a file of two pairs of lane words and leaves
+    every output row equal to ``eval_netlist`` of the netlist it
+    encodes."""
     rng = np.random.default_rng(2)
     for label, graph, prog in _programs():
         inputs = {bus: _words(rng, len(graph.inputs[bus]), 4)
