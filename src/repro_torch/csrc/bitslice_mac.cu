@@ -227,7 +227,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   const int nl = nch / WD * 32, np = A.pw * nl;   // chain, producer
   const int nthr = nl + np;
   const int tid = threadIdx.x, lane = tid & 31;
-  const int slot = lane % GS;                // this lane's first slot
+  // Lanes slot-major: lane s * (32 / GS) + q runs slot s of word pair q,
+  // so a half-warp's 64-bit loads read whole rows, four rows at GS = 8.
+  const int slot = lane / (32 / GS);         // this lane's first slot
   const int w0 = blockIdx.x * tw, p0 = blockIdx.y * tp;
   const int T = (C + ct - 1) / ct;
   const int pitch = ct * nin + 1;            // raw row, padded a word
@@ -244,12 +246,12 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   // file: warp wi of the chain warps, or of one producer group, serves
   // chains wi*WD ...
   const int wi = (chain ? tid : (tid - nl) % nl) / 32;
-  const int ch = wi * WD + 2 * (lane / GS);
+  const int ch = wi * WD + 2 * (lane % (32 / GS));
   uint32_t* f = chain
       ? reinterpret_cast<uint32_t*>(smem + L.cfile) + wi * A.add_rows * WD +
-            2 * (lane / GS)
+            2 * (lane % (32 / GS))
       : reinterpret_cast<uint32_t*>(smem + L.pfile) +
-            ((tid - nl) / 32) * A.mul_rows * WD + 2 * (lane / GS);
+            ((tid - nl) / 32) * A.mul_rows * WD + 2 * (lane % (32 / GS));
   auto row = [&](int r) { return reinterpret_cast<uint2*>(f + r * WD); };
   if (slot == 0) {
     *row(bsi::ZERO_ROW) = make_uint2(0u, 0u);

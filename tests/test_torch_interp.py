@@ -164,9 +164,10 @@ def _canon(graph, nid):
 def test_schedule_groups_and_rows(fmt, kind):
     """Follow every row through the groups: a gate never reads a value
     written inside its own group, no row is both read and written inside
-    a group (so its slots run in any order), every row a gate reads
-    holds the gate's operand, no gate writes an input row, and the
-    output rows hold the outputs at the end."""
+    a group (so its slots run in any order), each gate has a slot of its
+    own, every row a gate reads holds the operand its permuted order
+    names, no gate writes an input row, and the output rows hold the
+    outputs at the end."""
     if kind == "add":
         graph = fused_add_lowered(fmt, 2, False, RNE).graph
         buses = ["acc", "p0", "p1"]
@@ -197,8 +198,11 @@ def test_schedule_groups_and_rows(fmt, kind):
             assert not made & {c for c in kids if c != g.node}
             want = [_canon(graph, c) for c in kids]
             want += [FALSE] * (3 - len(want))
-            assert [holds.get(r) for r in g.src] == want, g
+            assert [holds.get(r) for r in g.src] == \
+                [want[k] for k in g.perm], g
             assert g.dst >= n_inputs and g.dst < nrows
+        assert len({g.slot for g in grp}) == len(grp)
+        assert all(0 <= g.slot < pg.GROUP_MAX for g in grp)
         assert not {g.dst for g in grp} & {r for g in grp for r in g.src}
         assert len({g.dst for g in grp}) == len(grp)
         for g in grp:
