@@ -623,8 +623,8 @@ def main() -> int:
                       f"warp-gates x 4 accesses, {n_sm} SMs); "
                       f"{d['cycles_a_mac']:.0f} cycles a MAC step")
             print(f"bitslice_mac before its redesign (PERF.md, not this "
-                  f"run): {EARLIER_INTERP_MS['1x1']} / "
-                  f"{EARLIER_INTERP_MS['3x3']} ms")
+                  f"run): {EARLIER_INTERP_MS['1x1']:.3f} / "
+                  f"{EARLIER_INTERP_MS['3x3']:.3f} ms")
             extra = {"chain_bound_ms": kd["1x1"]["chain_bound_ms"],
                      "chain_bound_ms_3x3": kd["3x3"]["chain_bound_ms"],
                      "cycles_a_mac_3x3": kd["3x3"]["cycles_a_mac"],

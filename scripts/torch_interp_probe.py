@@ -38,8 +38,8 @@ conv layers (3x3: P=196, C=4608, Mw=16; 1x1: C=512) in hobflops9:
    of chains at both layers, batch 1 and 4; ``_build.launch_blocks``'
    interpreter defaults and ``_build.INTERP_PRODUCERS`` cite it.
 
-Everything is written to ``chiprun_out/interp_probe.json`` too.  The SM
-clock is read with ``nvidia-smi`` after the timings.
+The last line is one JSON object with every reading.  The SM clock is
+read with ``nvidia-smi`` after the timings.
 
 Run from the repository root on a machine with a card:
 ``python3 scripts/torch_interp_probe.py``.
@@ -352,12 +352,8 @@ def main() -> int:
     print(f"clocks.sm after the timings: {clock:.0f} MHz; default kernel "
           f"{result['variants'][0]['cycles_a_mac_3x3']:.0f} cycles a MAC "
           f"step at 3x3")
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "interp_probe.json").write_text(json.dumps(result, indent=1))
     print(card)
-    print(json.dumps({k_: result[k_] for k_ in ("lut3", "variants",
-                                                 "clock_mhz")}))
+    print(json.dumps(result))
     return 0
 
 

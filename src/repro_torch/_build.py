@@ -31,13 +31,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 # Hopper launch defaults of both MAC kernels (see launch_blocks).
-# Values never depend on them.
+# Values never depend on them.  bitslice_mac's three: the lowest sum of
+# the stack's batch-1 and batch-4 times in scripts/torch_interp_probe.py's
+# sweep (PERF.md).
 CHAIN_THREADS = 32         # fused_mac: chains a block, one chain warp
-INTERP_CHAINS = 16         # bitslice_mac: chains a block, 8 lanes each
+INTERP_CHAINS = 32         # bitslice_mac: chains a block, 8 lanes a pair
 FUSED_PRODUCERS = 3        # fused_mac: producer warps a chain warp
 INTERP_PRODUCERS = 1       # bitslice_mac: producer warps a chain warp
 M_BLOCK = 32               # lane words a block at most: one warp per row
-C_BLOCK = 8                # bitslice_mac: channels of a ring slot
+C_BLOCK = 4                # bitslice_mac: channels of a ring slot
 FUSED_C_BLOCK = 8          # fused_mac: channels of a ring slot
 CHAIN_DEPTH = 4            # MAC steps a chain body is asked to take
 MAX_THREADS = 1024         # threads one block may hold
@@ -169,7 +171,7 @@ def launch_blocks(P: int, C: int, Mw: int, *, p_block: int | None = None,
     :data:`M_BLOCK` lane words, beside producer warps of their own: for
     ``fused_mac`` :data:`CHAIN_THREADS` chains, one chain warp — so a
     batch-1 layer's 98 chain warps land on 98 SMs; for ``bitslice_mac``
-    :data:`INTERP_CHAINS` chains, 8 lanes a chain.  ``c_block`` channels
+    :data:`INTERP_CHAINS` chains, 8 lanes a pair of them.  ``c_block`` channels
     are a ring slot (:data:`C_BLOCK` for ``bitslice_mac``,
     :data:`FUSED_C_BLOCK` for ``fused_mac``).  Given values are kept;
     missing ones take these defaults clamped to the problem.

@@ -186,13 +186,10 @@ class DevicePrograms:
         blob = np.concatenate(parts).astype(np.int32)
         self.mul, self.add = mul, add
         self.blob = torch.from_numpy(blob).to(device)
-        self.meta_list = [len(blob), add.groups, add.nrows, offs[1],
-                          mul.groups, mul.nrows, offs[2], offs[3]]
-        self.meta = (ctypes.c_int32 * 8)(*self.meta_list)
-
-    @property
-    def program_bytes(self) -> int:
-        return 4 * self.meta_list[0]
+        self.program_bytes = 4 * len(blob)
+        self.meta = (ctypes.c_int32 * 8)(
+            len(blob), add.groups, add.nrows, offs[1], mul.groups,
+            mul.nrows, offs[2], offs[3])
 
 
 @functools.lru_cache(maxsize=None)
@@ -298,9 +295,9 @@ def bitslice_mac_cuda(i_masks: torch.Tensor, w_planes: torch.Tensor, *,
     On CUDA tensors this launches ``csrc/bitslice_mac.cu`` (blocks over
     ``m_block x p_block`` (row, lane word) chains, :func:`lanes_a_pair`
     lanes a pair of them, and ``_build.INTERP_PRODUCERS`` producer warps
-    a chain warp; ring slots of ``c_block`` channels (:func:`ring_slot`); missing
-    values from
-    :func:`_build.launch_blocks`); on CPU tensors it runs the plain
+    a chain warp; ring slots of ``c_block`` channels (:func:`ring_slot`);
+    missing values from :func:`_build.launch_blocks`); on CPU tensors it
+    runs the plain
     version.  Any shape is accepted — the kernel masks the ragged P, Mw
     and C edges — and the output never depends on the blocks.
     """

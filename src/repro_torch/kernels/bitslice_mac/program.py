@@ -25,25 +25,22 @@ memory holds, which the launch checks first.
 **Schedule.**  Gates are ordered by level (ASAP depth) and packed into
 groups of at most :data:`GROUP_MAX` that read nothing written inside
 their own group; each group fills :data:`GROUP_MAX` slots, the unused
-ones empty.  Within a group, each gate's slot half, operand order (its
-truth table permuted to match) and result row are chosen so that the
-rows one half-warp load reads or writes fall in different bank classes
-(:data:`BANK_CLASSES`) where they can.  The kernel gives each lane word up to :data:`GROUP_MAX`
-lanes, each running its slots of a group, so a group's gates run side
-by side and a warp waits once a group.  Rows are allocated group by group: a row read for the last time
-in a group is free from the next group on, so no row is both read and
-written inside a group and its slots may run in any order; an output
-row is never reused, and no result is written to an input row — an
-output that is an input bit gets a copy gate — so copying the outputs
-into the accumulator rows after a step cannot overwrite an output.
-This scheduler is the interpreter's own; ``core.codegen._slot_schedule``
+ones empty.  The kernel gives each pair of lane words up to
+:data:`GROUP_MAX` lanes, each running its slots of a group, so a group's
+gates run side by side and a warp waits once a group.  Rows are
+allocated group by group: a row read for the last time in a group is
+free from the next group on, so no row is both read and written inside
+a group and its slots may run in any order; an output row is never
+reused, and no result is written to an input row — an output that is an
+input bit gets a copy gate — so copying the outputs into the
+accumulator rows after a step cannot overwrite an output.  This
+scheduler is the interpreter's own; ``core.codegen._slot_schedule``
 (one gate at a time) is left as the reference has it.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-import itertools
 
 import numpy as np
 import torch
@@ -63,7 +60,7 @@ from repro_torch.core.opt import optimize_mapped
 # Shared with csrc/bitslice_interp.cuh.
 ROW_BITS = 12
 MAX_ROWS = 1 << ROW_BITS
-GROUP_MAX = 8                  # slots a group: lanes a chain at most
+GROUP_MAX = 8                  # slots a group: lanes a word pair at most
 ZERO_ROW, ONES_ROW, FIRST_INPUT_ROW = 0, 1, 2
 
 # The cell library the interpreter runs by default: avx512's LUT3 cells
@@ -87,74 +84,12 @@ def imm_to_tt(imm: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Gate:
-    """One scheduled gate in slot ``slot`` of its group: ``node``
-    computed as ``lop3(imm)`` of the rows ``src`` into row ``dst``;
-    ``src[k]`` is the node's operand ``perm[k]``."""
+    """One scheduled gate: ``node`` computed as ``lop3(imm)`` of the rows
+    ``src`` into row ``dst``."""
     node: int
     imm: int
     src: tuple[int, int, int]
     dst: int
-    slot: int
-    perm: tuple[int, int, int]
-
-
-def permute_imm(imm: int, perm) -> int:
-    """The lop3 truth table of the same function with its operands
-    reordered: new operand k is old operand ``perm[k]``."""
-    out = 0
-    for i in range(8):
-        old = [0, 0, 0]
-        for k in range(3):
-            old[perm[k]] = (i >> (2 - k)) & 1
-        if (imm >> (old[0] << 2 | old[1] << 1 | old[2])) & 1:
-            out |= 1 << i
-    return out
-
-
-# Bank classes of rows, for the kernel's default of eight lanes a pair of
-# lane words: a row of a warp's file is 32 bytes, so four rows fill the
-# 32 banks, and row r sits in class r % 4.  A half-warp's 64-bit load
-# reads the rows of four slots: one wavefront when their classes differ,
-# one more for each further row of a class.
-BANK_CLASSES = 4
-HALF = GROUP_MAX // 2
-_PERMS = tuple(itertools.permutations(range(3)))
-
-
-def _waves(rows) -> int:
-    """Wavefronts of one half-warp load of ``rows``: the most distinct
-    rows in one bank class (0 when no lane of the half loads)."""
-    per = {}
-    for r in set(rows):
-        per[r % BANK_CLASSES] = per.get(r % BANK_CLASSES, 0) + 1
-    return max(per.values(), default=0)
-
-
-def _place(gates, srcs, imms):
-    """Slots, operand orders and truth tables of one group's gates: each
-    gate goes to the half (slots 0-3 or 4-7) and takes the operand order
-    that add the fewest wavefronts to that half's three loads, the half
-    in use first."""
-    halves = ([], [])               # per half: the placed rows a gate
-    placed = {}
-    for nid in gates:
-        best = None
-        for h in (0, 1):
-            if len(halves[h]) == HALF:
-                continue
-            for perm in _PERMS:
-                rows = tuple(srcs[nid][i] for i in perm)
-                cost = sum(_waves([r[k] for r in halves[h]] + [rows[k]])
-                           - _waves([r[k] for r in halves[h]])
-                           for k in range(3))
-                key = (cost, not halves[h])
-                if best is None or key < best[0]:
-                    best = (key, h, perm, rows)
-        _, h, perm, rows = best
-        placed[nid] = (h * HALF + len(halves[h]), rows, perm,
-                       permute_imm(imms[nid], perm))
-        halves[h].append(rows)
-    return placed
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -177,14 +112,6 @@ class Program:
     @property
     def nout(self) -> int:
         return len(self.out_rows)
-
-    def input_row(self, bus: str) -> int:
-        row = FIRST_INPUT_ROW
-        for name, width in self.inputs:
-            if name == bus:
-                return row
-            row += width
-        raise KeyError(bus)
 
     @functools.cached_property
     def decoded(self) -> list[list[tuple[int, int, int, int, int]]]:
@@ -268,37 +195,29 @@ def schedule(graph: Graph, input_buses) -> tuple[list[list[Gate]], int,
     groups = []
     result_row: dict[int, int] = {}
     for gi, grp in enumerate(packed):
-        srcs, imms = {}, {}
+        srcs = {}
         for nid in grp:
             if nid in copies:
                 srcs[nid] = (row_of[nid], ZERO_ROW, ZERO_ROW)
-                imms[nid] = IMM_COPY
                 continue
             n = nodes[nid]
             rows = [src_row(ch) for ch in (n.a, n.b, n.c) if ch >= 0]
             srcs[nid] = tuple(rows + [ZERO_ROW] * (3 - len(rows)))
-            imms[nid] = (lop3_imm(n.aux) if n.op == OP_LUT3
-                         else _IMM[n.op])
-        placed = _place(grp, srcs, imms)
         out = []
-        used = ([], [])          # result classes of each half
         for nid in grp:
-            slot, rows, perm, imm = placed[nid]
-            taken = used[slot // HALF]
-            # A free row of a class this half writes to no other row, if
-            # there is one.
-            pick = next((i for i in range(len(free) - 1, -1, -1)
-                         if free[i] % BANK_CLASSES not in taken), None)
-            if pick is not None:
-                dst = free.pop(pick)
-            elif free and nrows % BANK_CLASSES in taken:
+            if free:
                 dst = free.pop()
             else:
                 dst = nrows
                 nrows += 1
-            taken.append(dst % BANK_CLASSES)
             result_row[nid] = dst
-            out.append(Gate(nid, imm, rows, dst, slot, perm))
+            if nid in copies:
+                imm = IMM_COPY
+            elif nodes[nid].op == OP_LUT3:
+                imm = lop3_imm(nodes[nid].aux)
+            else:
+                imm = _IMM[nodes[nid].op]
+            out.append(Gate(nid, imm, srcs[nid], dst))
         # Rows read for the last time here, and results read by no gate,
         # are free from the next group on.
         for ch in {ch for nid in grp for ch in kids(nid)}:
@@ -328,10 +247,10 @@ def encode(graph: Graph, input_buses) -> Program:
                          f"encoding addresses {MAX_ROWS}")
     words = np.zeros((len(groups) + 1, GROUP_MAX, 2), np.uint32)
     for gi, grp in enumerate(groups):
-        for g in grp:
+        for i, g in enumerate(grp):
             a, b, c = g.src
-            words[gi, g.slot] = (a | b << ROW_BITS | g.imm << 24,
-                                 c | g.dst << ROW_BITS | 1 << 24)
+            words[gi, i] = (a | b << ROW_BITS | g.imm << 24,
+                            c | g.dst << ROW_BITS | 1 << 24)
     return Program(words.view(np.int32), sum(len(g) for g in groups),
                    len(groups), nrows,
                    tuple((b, len(graph.inputs[b])) for b in input_buses),

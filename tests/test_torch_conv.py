@@ -190,11 +190,11 @@ def test_conv2d_f32_oracle_matches_jax():
 
 
 def test_derive_blocks_hopper_defaults():
-    """Hopper launch defaults: one warp of lane words per row, one chain
-    warp a block, an 8-channel ring slot, chain depth 4 — each clamped
-    to the problem."""
+    """Hopper launch defaults of the interpreter: one warp of lane words
+    per row, 32 chains a block, a 4-channel ring slot, chain depth 4 —
+    each clamped to the problem."""
     blk = tconv.derive_blocks(196, 4608, 512)
-    assert blk == {"p_block": 2, "m_block": 16, "c_block": 8,
+    assert blk == {"p_block": 2, "m_block": 16, "c_block": 4,
                    "c_unroll": 4}
     assert tconv.derive_blocks(5, 3, 7) == {"p_block": 5, "m_block": 1,
                                             "c_block": 3, "c_unroll": 3}

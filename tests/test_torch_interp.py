@@ -65,9 +65,12 @@ static void run_t(const uint2* prog, int groups, uint32_t* file) {
 }
 extern "C" void run(int method, const uint2* prog, int groups,
                     uint32_t* file) {
-  if (method == bsi::LUT_MUX) run_t<bsi::LUT_MUX>(prog, groups, file);
-  else if (method == bsi::LUT_SWITCH) run_t<bsi::LUT_SWITCH>(prog, groups, file);
-  else run_t<bsi::LUT_MINTERM>(prog, groups, file);
+  if (method == bsi::LUT_MUX)
+    run_t<bsi::LUT_MUX>(prog, groups, file);
+  else if (method == bsi::LUT_SWITCH)
+    run_t<bsi::LUT_SWITCH>(prog, groups, file);
+  else
+    run_t<bsi::LUT_MINTERM>(prog, groups, file);
 }
 """
 
@@ -164,10 +167,9 @@ def _canon(graph, nid):
 def test_schedule_groups_and_rows(fmt, kind):
     """Follow every row through the groups: a gate never reads a value
     written inside its own group, no row is both read and written inside
-    a group (so its slots run in any order), each gate has a slot of its
-    own, every row a gate reads holds the operand its permuted order
-    names, no gate writes an input row, and the output rows hold the
-    outputs at the end."""
+    a group (so its slots run in any order), every row a gate reads
+    holds the gate's operand, no gate writes an input row, and the
+    output rows hold the outputs at the end."""
     if kind == "add":
         graph = fused_add_lowered(fmt, 2, False, RNE).graph
         buses = ["acc", "p0", "p1"]
@@ -198,11 +200,8 @@ def test_schedule_groups_and_rows(fmt, kind):
             assert not made & {c for c in kids if c != g.node}
             want = [_canon(graph, c) for c in kids]
             want += [FALSE] * (3 - len(want))
-            assert [holds.get(r) for r in g.src] == \
-                [want[k] for k in g.perm], g
+            assert [holds.get(r) for r in g.src] == want, g
             assert g.dst >= n_inputs and g.dst < nrows
-        assert len({g.slot for g in grp}) == len(grp)
-        assert all(0 <= g.slot < pg.GROUP_MAX for g in grp)
         assert not {g.dst for g in grp} & {r for g in grp for r in g.src}
         assert len({g.dst for g in grp}) == len(grp)
         for g in grp:
