@@ -8,20 +8,19 @@ conv layers (3x3: P=196, C=4608, Mw=16; 1x1: C=512) in hobflops9:
 
 1. **A run-time LUT3 by each method.**  A one-block microbenchmark times,
    with ``clock64()``, 2048 LUT3s whose truth tables are read from shared
-   memory (one ahead, as the kernel reads its program): the branch-free
-   mux tree of seven ``lop3`` over the table's masks (``LUT_MUX``), a
-   warp-uniform 256-way ``switch`` of ``lop3`` immediates
-   (``LUT_SWITCH``) and the 8-minterm loop (``LUT_MINTERM``) — a
-   dependent chain (cycles a LUT3 of latency) and 8 independent chains
-   (issue) — beside a fixed-immediate ``lop3`` (``chip_smoke``'s
-   ``lop3_readings``).
-2. **Registers, spills and SASS.**  ``-Xptxas -v`` of each build and a
+   memory (one ahead, as the kernel reads its program): the kernel's
+   branch-free mux tree of seven ``lop3`` over the table's masks
+   (``bsi::lut_mux``), a warp-uniform 256-way ``switch`` of ``lop3``
+   immediates (defined in the microbenchmark's source) and the 8-minterm
+   loop (``bsi::lop3_c``) — a dependent chain (cycles a LUT3 of latency)
+   and 8 independent chains (issue) — beside a fixed-immediate ``lop3``
+   (``chip_smoke``'s ``lop3_readings``).
+2. **Registers, spills and SASS.**  ``-Xptxas -v`` of the build and a
    census of the production kernel's SASS by ``cuobjdump -sass``.
-3. **The kernel by LUT3 method and by cell library.**  The kernel built
-   with each method (one ``nvcc`` each, started together), timed at both
-   layers at batch 1; and the default build running ``avx512`` programs
-   (LUT3 cells) against ``tpu_vpu`` ones (two-input cells, twice the
-   gates).  Every variant is checked against the default's planes.
+3. **The kernel by cell library.**  The kernel running ``avx512``
+   programs (LUT3 cells) against ``tpu_vpu`` ones (two-input cells,
+   twice the gates), timed at both layers at batch 1 and checked against
+   the default's planes.
 4. **Where a MAC step's cycles go.**  The probe instantiation (built with
    ``BSM_PROBE``) stamps ``clock64()`` in each warp's lane 0 after each
    phase of its slots, once the phase's results are in registers, so the
@@ -61,8 +60,7 @@ from chip_smoke import (lop3_readings, nvidia_smi,  # noqa: E402
                         ptxas_report, time_cuda)
 from torch_fused_probe import sass_census  # noqa: E402
 
-METHODS = {"mux": "bsi::LUT_MUX", "switch": "bsi::LUT_SWITCH",
-           "minterm": "bsi::LUT_MINTERM"}
+METHODS = ("mux", "switch", "minterm")     # LUT_BENCH's method codes
 LAYERS = (("3x3", 4608), ("1x1", 512))
 HW, MW = 14, 16
 REPS = 10
@@ -70,6 +68,24 @@ LUT_N = 2048
 
 LUT_BENCH = r"""
 #include "bitslice_interp.cuh"
+enum { LUT_MUX = 0, LUT_SWITCH = 1, LUT_MINTERM = 2 };
+
+// A warp-uniform 256-way switch of lop3 immediates.
+__device__ __forceinline__ uint32_t lut_switch(uint32_t imm, uint32_t a,
+                                               uint32_t b, uint32_t c) {
+  switch (imm & 255u) {
+#define BSI_C1(i) \
+  case (i):       \
+    return bsi::lop3<(i)>(a, b, c);
+#define BSI_C4(i) BSI_C1(i) BSI_C1((i) + 1) BSI_C1((i) + 2) BSI_C1((i) + 3)
+#define BSI_C16(i) BSI_C4(i) BSI_C4((i) + 4) BSI_C4((i) + 8) BSI_C4((i) + 12)
+#define BSI_C64(i) \
+  BSI_C16(i) BSI_C16((i) + 16) BSI_C16((i) + 32) BSI_C16((i) + 48)
+    BSI_C64(0) BSI_C64(64) BSI_C64(128) BSI_C64(192)
+  }
+  return 0u;
+}
+
 template <int LUT, int ILP>
 __global__ void lut_bench(const uint32_t* __restrict__ imms, uint32_t* out,
                           long long* cyc) {
@@ -91,10 +107,10 @@ __global__ void lut_bench(const uint32_t* __restrict__ imms, uint32_t* out,
     const uint32_t next = imm_s[i + 1];
 #pragma unroll
     for (int j = 0; j < ILP; ++j) {
-      if constexpr (LUT == bsi::LUT_MUX)
+      if constexpr (LUT == LUT_MUX)
         x[j] = bsi::lut_mux(masks[imm], masks[256 + imm], y, z, x[j]);
-      else if constexpr (LUT == bsi::LUT_SWITCH)
-        x[j] = bsi::lut_switch(imm, y, z, x[j]);
+      else if constexpr (LUT == LUT_SWITCH)
+        x[j] = lut_switch(imm, y, z, x[j]);
       else
         x[j] = bsi::lop3_c(y, z, x[j], imm);
     }
@@ -113,7 +129,7 @@ extern "C" int lut_bench_launch(const uint32_t* imms, uint32_t* out,
     if (ilp == 1) lut_bench<M, 1><<<1, 32>>>(imms, out, cyc);      \
     else lut_bench<M, 8><<<1, 32>>>(imms, out, cyc);               \
   }
-  BSI_L(bsi::LUT_MUX) BSI_L(bsi::LUT_SWITCH) BSI_L(bsi::LUT_MINTERM)
+  BSI_L(LUT_MUX) BSI_L(LUT_SWITCH) BSI_L(LUT_MINTERM)
 #undef BSI_L
   return (int)cudaGetLastError();
 }
@@ -131,7 +147,7 @@ def lut_readings(_build, lib) -> dict:
     out = torch.empty(32, dtype=torch.int32, device="cuda")
     cyc = torch.zeros(1, dtype=torch.int64, device="cuda")
     res = {}
-    for name, code in (("mux", 0), ("switch", 1), ("minterm", 2)):
+    for code, name in enumerate(METHODS):
         for ilp in (1, 8):
             for _ in range(3):                      # warm, keep the last
                 _build.check(fn(_build.ptr(imms), _build.ptr(out),
@@ -168,13 +184,12 @@ def main() -> int:
     card = nvidia_smi("name,power.limit")
     print(card)
     fmt = HOBFLOPS_FORMATS["hobflops9"]
-    jobs = [interp.build_job(f"#define BSM_PROBE 1\n#define BSM_LUT {m}")
-            for m in METHODS.values()] + [("lut_bench", LUT_BENCH)]
-    libs = dict(zip(list(METHODS) + ["bench"], _build.build(jobs)))
+    kern, bench = _build.build([interp.build_job("#define BSM_PROBE 1"),
+                                ("lut_bench", LUT_BENCH)])
     result = {"card": card}
 
     lop3 = lop3_readings(_build)
-    luts = lut_readings(_build, libs["bench"])
+    luts = lut_readings(_build, bench)
     result["lop3"], result["lut3"] = lop3, luts
     print(f"fixed-immediate lop3: dependent {lop3['dependent_1w']:.2f}, "
           f"issue {lop3['ilp8_1w']:.2f} cycles")
@@ -182,25 +197,23 @@ def main() -> int:
         print(f"run-time LUT3 {key}: {val:.2f} cycles")
 
     regs = {}
-    for name in METHODS:
-        for entry, rep in ptxas_report(libs[name].ptxas_log).items():
-            if "bitslice_mac_kernel" in entry:
-                kind = "probe" if "Lb1E" in entry else "kernel"
-                regs[f"{name} {kind}"] = rep
-                print(f"ptxas {name} {kind}: {rep.get('regs')} registers, "
-                      f"spill stores/loads {rep.get('spill_stores')}/"
-                      f"{rep.get('spill_loads')} B")
+    for entry, rep in ptxas_report(kern.ptxas_log).items():
+        if "bitslice_mac_kernel" in entry:
+            regs[entry] = rep
+            print(f"ptxas {entry}: {rep.get('regs')} registers, "
+                  f"spill stores/loads {rep.get('spill_stores')}/"
+                  f"{rep.get('spill_loads')} B")
     result["ptxas"] = regs
-    sass = next(ops for n, ops in sass_census(libs["mux"].path).items()
+    sass = next(ops for n, ops in sass_census(kern.path).items()
                 if "bitslice_mac_kernel" in n and "Lb0E" in n)
     result["sass"] = dict(sass)
-    print(f"SASS (mux kernel): {sum(sass.values())} instructions, "
+    print(f"SASS (kernel): {sum(sass.values())} instructions, "
           f"{sass['LOP3']} LOP3, {sass['LDS']} LDS, {sass['STS']} STS, "
           f"{sass['BRX']} BRX; top {sass.most_common(8)}")
 
     rng = np.random.default_rng(args.seed)
-    launch = {m: interp.bind(libs[m]) for m in METHODS}
-    probe = interp.bind(libs["mux"], probe=True)
+    entry = interp.bind(kern)
+    probe = interp.bind(kern, probe=True)
     blk = _build.launch_blocks(HW * HW, 4608, MW)
     k = blk["c_unroll"]
     progs = {lib: interp.device_programs(fmt, k, False, RNE, lib, "cuda")
@@ -239,35 +252,33 @@ def main() -> int:
     want = {}
     for key, ops in layers.items():
         want[key] = new_out(ops)
-        run(launch["mux"], ops, progs["avx512"], **dflt, out=want[key])
+        run(entry, ops, progs["avx512"], **dflt, out=want[key])
     for name, C in LAYERS:      # the default build against its plain version
         ops = layers[(name, 1)]
         small = (ops[0][:, :64].contiguous(), ops[1][:64].contiguous())
         got = new_out(ops)
-        run(launch["mux"], small, progs["avx512"], **dflt, out=got)
+        run(entry, small, progs["avx512"], **dflt, out=got)
         ref = interp._bitslice_mac_torch(*small, fmt=fmt, extended=False,
                                          rounding=RNE, c_unroll=k)
         if not torch.equal(got, ref):
             print(f"{name}: kernel != plain version", file=sys.stderr)
             return 1
 
-    # 3. the kernel by LUT3 method and by library, batch 1
-    variants = [(m, "avx512") for m in METHODS] + [("mux", "tpu_vpu")]
+    # 3. the kernel by cell library, batch 1
     result["variants"] = []
-    for method, lib in variants:
-        row = {"lut": method, "lib": lib}
+    for lib in progs:
+        row = {"lib": lib}
         for name, C in LAYERS:
             ops = layers[(name, 1)]
             out = new_out(ops)
-            ms = time_cuda(lambda: run(launch[method], ops, progs[lib],
-                                       **dflt, out=out), REPS)
+            ms = time_cuda(lambda: run(entry, ops, progs[lib], **dflt,
+                                       out=out), REPS)
             if not torch.equal(out, want[(name, 1)]):
-                print(f"{method}/{lib} {name}: planes differ",
-                      file=sys.stderr)
+                print(f"{lib} {name}: planes differ", file=sys.stderr)
                 return 1
             row[name] = ms
         result["variants"].append(row)
-        print(f"LUT3 {method:8s} {lib:8s}: 3x3 {row['3x3']:.3f} ms, "
+        print(f"{lib:8s} programs: 3x3 {row['3x3']:.3f} ms, "
               f"1x1 {row['1x1']:.3f} ms")
 
     # 4. the probe's account, batch 1
@@ -322,7 +333,7 @@ def main() -> int:
         for (name, batch), ops in layers.items():
             out = new_out(ops)
             try:
-                ms = time_cuda(lambda: run(launch["mux"], ops,
+                ms = time_cuda(lambda: run(entry, ops,
                                            progs["avx512"], **cfg, out=out),
                                REPS)
             except ValueError as e:     # does not fit a block

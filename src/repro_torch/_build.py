@@ -43,7 +43,6 @@ C_BLOCK = 4                # bitslice_mac: channels of a ring slot
 FUSED_C_BLOCK = 8          # fused_mac: channels of a ring slot
 CHAIN_DEPTH = 4            # MAC steps a chain body is asked to take
 MAX_THREADS = 1024         # threads one block may hold
-INTERP_MAX_THREADS = 1024  # bitslice_mac's __launch_bounds__
 MAX_SMEM = 232448          # bytes of shared memory one block may use
 
 
@@ -194,15 +193,14 @@ def c_tile(c_block: int, k: int) -> int:
 
 
 def check_blocks(p_block: int, m_block: int, ct: int, smem: int,
-                 threads: int | None = None,
-                 max_threads: int = MAX_THREADS, what: str = "") -> None:
+                 threads: int | None = None, what: str = "") -> None:
     """Raise unless a block over ``m_block x p_block`` chains — of
-    ``threads`` threads (at most ``max_threads``), by default one a
-    chain — with a C tile of ``ct`` channels and ``smem`` bytes of shared
-    memory can launch; a refused launch would never run.  ``what`` names
-    a part of the shared memory in the message."""
+    ``threads`` threads, by default one a chain — with a C tile of
+    ``ct`` channels and ``smem`` bytes of shared memory can launch; a
+    refused launch would never run.  ``what`` names a part of the shared
+    memory in the message."""
     threads = p_block * m_block if threads is None else threads
-    if min(p_block, m_block) < 1 or threads > max_threads \
+    if min(p_block, m_block) < 1 or threads > MAX_THREADS \
             or smem > MAX_SMEM:
         raise ValueError(f"blocks p={p_block} m={m_block} c={ct} need "
                          f"{threads} threads, {smem} B shared"

@@ -44,12 +44,8 @@ constexpr uint32_t ROW_MASK = (1u << ROW_BITS) - 1u;
 constexpr int GROUP_MAX = 8;   // slots a group: lanes a word pair at most
 constexpr int ZERO_ROW = 0, ONES_ROW = 1, FIRST_INPUT_ROW = 2;
 
-// Run-time LUT3 evaluators (the kernel takes one; scripts/
-// torch_interp_probe.py times all three).
-enum { LUT_MUX = 0, LUT_SWITCH = 1, LUT_MINTERM = 2 };
-
 // lop3.b32 semantics in C: bit i of imm is the output for the inputs
-// a, b, c with (a << 2) | (b << 1) | c == i.  Also the 8-minterm method.
+// a, b, c with (a << 2) | (b << 1) | c == i (the host twin of lop3).
 BSI_FN uint32_t lop3_c(uint32_t a, uint32_t b, uint32_t c, uint32_t imm) {
   uint32_t r = 0u;
   BSI_UNROLL
@@ -97,33 +93,15 @@ BSI_FN void mask_row(uint4* masks, uint32_t imm) {
   lut_masks(imm, masks[imm], masks[256 + imm]);
 }
 
-// Branch-free: seven lop3 muxes over the eight truth-table masks, c
-// selecting first, so only three of them wait on the last operand.
+// The kernel's run-time LUT3, branch-free: seven lop3 muxes over the
+// eight truth-table masks, c selecting first, so only three of them wait
+// on the last operand (scripts/torch_interp_probe.py times it against a
+// 256-way switch of lop3 immediates and the 8-minterm loop of lop3_c).
 BSI_FN uint32_t lut_mux(const uint4& lo, const uint4& hi, uint32_t a,
                         uint32_t b, uint32_t c) {
   const uint32_t u0 = sel(c, lo.y, lo.x), u1 = sel(c, lo.w, lo.z);
   const uint32_t u2 = sel(c, hi.y, hi.x), u3 = sel(c, hi.w, hi.z);
   return sel(a, sel(b, u3, u2), sel(b, u1, u0));
-}
-
-// A warp-uniform 256-way switch of lop3 immediates.
-BSI_FN uint32_t lut_switch(uint32_t imm, uint32_t a, uint32_t b,
-                           uint32_t c) {
-  switch (imm & 255u) {
-#define BSI_C1(i) \
-  case (i):       \
-    return lop3<(i)>(a, b, c);
-#define BSI_C4(i) BSI_C1(i) BSI_C1((i) + 1) BSI_C1((i) + 2) BSI_C1((i) + 3)
-#define BSI_C16(i) BSI_C4(i) BSI_C4((i) + 4) BSI_C4((i) + 8) BSI_C4((i) + 12)
-#define BSI_C64(i) \
-  BSI_C16(i) BSI_C16((i) + 16) BSI_C16((i) + 32) BSI_C16((i) + 48)
-    BSI_C64(0) BSI_C64(64) BSI_C64(128) BSI_C64(192)
-#undef BSI_C64
-#undef BSI_C16
-#undef BSI_C4
-#undef BSI_C1
-  }
-  return 0u;
 }
 
 // Fields of one gate.
@@ -145,8 +123,8 @@ struct NoProbe {
 
 // One slot of a group for a lane's two lane words: the gate w over the
 // file (f: the lane's two words of row 0, row r at f + r * WD), `masks`
-// the mask table (mask_row; LUT_MUX only).  An empty slot does nothing.
-template <int LUT, int WD, class Probe>
+// the mask table (mask_row).  An empty slot does nothing.
+template <int WD, class Probe>
 BSI_FN void run_gate(uint2 w, uint32_t* __restrict__ f,
                      const uint4* __restrict__ masks, Probe& pr) {
   if (!valid(w)) return;
@@ -156,18 +134,10 @@ BSI_FN void run_gate(uint2 w, uint32_t* __restrict__ f,
   if constexpr (Probe::SERIAL) pr.mark(PH_LOADS, a.x ^ b.x ^ c.x ^ a.y ^
                                                      b.y ^ c.y);
   const uint32_t imm = imm_of(w);
+  const uint4 lo = masks[imm], hi = masks[256 + imm];
   uint2 v;
-  if constexpr (LUT == LUT_MUX) {
-    const uint4 lo = masks[imm], hi = masks[256 + imm];
-    v.x = lut_mux(lo, hi, a.x, b.x, c.x);
-    v.y = lut_mux(lo, hi, a.y, b.y, c.y);
-  } else if constexpr (LUT == LUT_SWITCH) {
-    v.x = lut_switch(imm, a.x, b.x, c.x);
-    v.y = lut_switch(imm, a.y, b.y, c.y);
-  } else {
-    v.x = lop3_c(a.x, b.x, c.x, imm);
-    v.y = lop3_c(a.y, b.y, c.y, imm);
-  }
+  v.x = lut_mux(lo, hi, a.x, b.x, c.x);
+  v.y = lut_mux(lo, hi, a.y, b.y, c.y);
   if constexpr (Probe::SERIAL) pr.mark(PH_EVAL, v.x ^ v.y);
   *reinterpret_cast<uint2*>(f + row_d(w) * WD) = v;
   if constexpr (Probe::SERIAL) pr.mark(PH_STORES, 0u);

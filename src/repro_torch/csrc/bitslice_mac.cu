@@ -36,9 +36,9 @@
 // * Both programs staged once a block into shared memory by cp.async,
 //   8 bytes a gate, each lane reading its next slot while it runs this
 //   one.
-// * The run-time LUT3 chosen by BSM_LUT (scripts/torch_interp_probe.py
-//   times the three): seven lop3 muxes over the truth table's masks, read
-//   from a 256-row table in shared memory.
+// * The run-time LUT3: seven lop3 muxes over the truth table's masks,
+//   read from a 256-row table in shared memory (the cheapest of the
+//   methods scripts/torch_interp_probe.py times).
 // * Multiply ahead, as fused_mac does: producer warps stage C tiles of
 //   weight and IFM-mask words with cp.async (zero past C, P and Mw: +0,
 //   the MAC identity) and interpret the multiplier into a ring of product
@@ -55,10 +55,6 @@
 
 #include "bitslice_interp.cuh"
 #include "fused_mac.cuh"   // hf:: mbarriers, cp.async, the producer barrier
-
-#ifndef BSM_LUT
-#define BSM_LUT bsi::LUT_MUX
-#endif
 
 namespace {
 
@@ -177,7 +173,7 @@ struct Args {
 
 // Run a program's groups: this lane's slots of each (the next group's
 // read while this one runs), the warp synced after every group.
-template <int LUT, int GS, class Probe>
+template <int GS, class Probe>
 __device__ __forceinline__ void run_program(const uint2* __restrict__ prog,
                                             int groups, int slot,
                                             uint32_t* __restrict__ f,
@@ -194,7 +190,7 @@ __device__ __forceinline__ void run_program(const uint2* __restrict__ prog,
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       if constexpr (Probe::SERIAL) pr.mark(bsi::PH_FETCH, w[j].x ^ w[j].y);
-      bsi::run_gate<LUT, WD>(w[j], f, masks, pr);
+      bsi::run_gate<WD>(w[j], f, masks, pr);
     }
     __syncwarp();
 #pragma unroll
@@ -206,7 +202,7 @@ __device__ __forceinline__ void run_program(const uint2* __restrict__ prog,
 // step's input and output copies, 7 chain steps.  Producer warps: 0-3 the
 // multiplier's phases, 4 waits (tile landed, barrier, empty slot), 5
 // staging issue, 6 product copies, 7 channels.  Each warp's lane 0.
-template <int LUT, bool PROBE, int GS>
+template <bool PROBE, int GS>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     bitslice_mac_kernel(const Args A) {
   using Probe = typename std::conditional<PROBE, ClockProbe,
@@ -302,7 +298,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
           extra[1] += ClockProbe::clock_after(f[in_row * WD]) - c0;
           pr.start();
         }
-        run_program<LUT, GS>(prog, A.add_groups, slot, f, masks, pr);
+        run_program<GS>(prog, A.add_groups, slot, f, masks, pr);
         if constexpr (PROBE) c0 = clock64();
         for (int b = slot; b < nout; b += GS)
           *row(bsi::FIRST_INPUT_ROW + b) = *row(aout[b]);
@@ -367,7 +363,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         }
         __syncwarp();
         if constexpr (PROBE) pr.start();
-        run_program<LUT, GS>(prog, A.mul_groups, slot, f, masks, pr);
+        run_program<GS>(prog, A.mul_groups, slot, f, masks, pr);
         if constexpr (PROBE) c0 = clock64();
         for (int b = slot; b < nout; b += GS)
           *reinterpret_cast<uint2*>(pp + ((size_t)c * nout + b) * nch) =
@@ -396,30 +392,30 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   }
 }
 
-template <int LUT, bool PROBE, int GS>
+template <bool PROBE, int GS>
 int launch_gs(const Args& a, void* stream) {
   const Layout L = layout(a.blob_words, a.add_rows, a.mul_rows, a.nin,
                           a.nout, a.tp, a.tw, a.ct, a.pw, GS);
   cudaError_t err = cudaFuncSetAttribute(
-      bitslice_mac_kernel<LUT, PROBE, GS>,
+      bitslice_mac_kernel<PROBE, GS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
   const int threads =
       (1 + a.pw) * padded_chains(a.tp, a.tw, GS) / (64 / GS) * 32;
   const dim3 grid((a.Mw + a.tw - 1) / a.tw, (a.P + a.tp - 1) / a.tp);
-  bitslice_mac_kernel<LUT, PROBE, GS>
+  bitslice_mac_kernel<PROBE, GS>
       <<<grid, threads, L.total, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // gs: lanes a chain, 1, 2, 4 or 8 (the wrapper picks it).
-template <int LUT, bool PROBE>
+template <bool PROBE>
 int launch(const Args& a, int gs, void* stream) {
   switch (gs) {
-    case 8: return launch_gs<LUT, PROBE, 8>(a, stream);
-    case 4: return launch_gs<LUT, PROBE, 4>(a, stream);
-    case 2: return launch_gs<LUT, PROBE, 2>(a, stream);
-    case 1: return launch_gs<LUT, PROBE, 1>(a, stream);
+    case 8: return launch_gs<PROBE, 8>(a, stream);
+    case 4: return launch_gs<PROBE, 4>(a, stream);
+    case 2: return launch_gs<PROBE, 2>(a, stream);
+    case 1: return launch_gs<PROBE, 1>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -454,7 +450,7 @@ extern "C" int bitslice_mac_launch(const int32_t* i_masks,
                                    int nin, int nout, int k, int P, int C,
                                    int Mw, int tp, int tw, int ct, int pw,
                                    int gs, void* stream) {
-  return launch<BSM_LUT, false>(
+  return launch<false>(
       make_args(i_masks, w_planes, out, blob, meta, nin, nout, k, P, C, Mw,
                 tp, tw, ct, pw, nullptr),
       gs, stream);
@@ -470,7 +466,7 @@ extern "C" int bitslice_mac_probe(const int32_t* i_masks,
                                   int Mw, int tp, int tw, int ct, int pw,
                                   int gs, void* stream,
                                   unsigned long long* probe) {
-  return launch<BSM_LUT, true>(
+  return launch<true>(
       make_args(i_masks, w_planes, out, blob, meta, nin, nout, k, P, C, Mw,
                 tp, tw, ct, pw, probe),
       gs, stream);

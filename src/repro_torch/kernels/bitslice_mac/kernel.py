@@ -96,13 +96,12 @@ def scale_netlist_fn(fmt: FPFormat, k: int, lib: str = "tpu_vpu"):
 # The plain version
 # ---------------------------------------------------------------------------
 def _bitslice_mac_torch(i_masks, w_planes, *, fmt: FPFormat, extended: bool,
-                        rounding: str, c_unroll: int | None = None,
-                        lib: str = LIB):
+                        rounding: str, c_unroll: int | None = None):
     """Plain version: the kernel's two programs run by :func:`run_program`
-    — the multiplier over every channel at once (it does not read the
-    accumulator), then the add-only chain stepped over C/c_unroll channel
-    groups.  C is padded to a multiple of ``c_unroll`` with +0 codes — the
-    all-zero planes — which are the MAC identity."""
+    over C/c_unroll channel groups in order — the multiplier on the
+    group's channels, then the add-only chain.  C is padded to a multiple
+    of ``c_unroll`` with +0 codes — the all-zero planes — which are the
+    MAC identity."""
     P, C, nin = i_masks.shape
     Mw = w_planes.shape[2]
     k = _build.chain_depth(C, c_unroll)
@@ -111,18 +110,19 @@ def _bitslice_mac_torch(i_masks, w_planes, *, fmt: FPFormat, extended: bool,
         i_masks = F.pad(i_masks, (0, 0, 0, pad))
         w_planes = F.pad(w_planes, (0, 0, 0, 0, 0, pad))
         C += pad
-    mul = mul_program(fmt, extended, rounding, lib)
-    add = add_program(fmt, k, extended, rounding, lib)
-    prods = run_program(mul, {
-        "x0": [w_planes[:, b, None, :] for b in range(nin)],      # [C,1,Mw]
-        "y0": [i_masks[:, :, b].T[:, :, None] for b in range(nin)]})
-    prods = torch.stack([p.expand(C, P, Mw) for p in prods], 1)
+    mul = mul_program(fmt, extended, rounding)
+    add = add_program(fmt, k, extended, rounding)
     acc = [torch.zeros((P, Mw), dtype=torch.int32, device=i_masks.device)
            for _ in range(add.nout)]
     for s in range(0, C, k):
+        prods = run_program(mul, {
+            "x0": [w_planes[s:s + k, b, None, :] for b in range(nin)],
+            "y0": [i_masks[:, s:s + k, b].T[:, :, None]
+                   for b in range(nin)]})                   # [k, P, Mw]
+        prods = [p.expand(k, P, Mw) for p in prods]
         ins = {"acc": acc}
         for j in range(k):
-            ins[f"p{j}"] = list(prods[s + j])
+            ins[f"p{j}"] = [p[j] for p in prods]
         acc = [o.expand(P, Mw) for o in run_program(add, ins)]
     return torch.stack(acc).contiguous()
 
@@ -222,10 +222,10 @@ def block_threads(p_block: int, m_block: int, pw: int, gs: int) -> int:
 def lanes_a_pair(p_block: int, m_block: int, pw: int) -> int:
     """Lanes a pair of chains: :data:`GROUP_MAX` (one a slot of a group)
     unless the block's chains would then need more than
-    ``_build.INTERP_MAX_THREADS`` threads, else the most that fit; at
-    one lane a pair the block is checked as it is."""
+    ``_build.MAX_THREADS`` threads, else the most that fit; at one lane a
+    pair the block is checked as it is."""
     return next((gs for gs in LANES_A_PAIR if block_threads(
-        p_block, m_block, pw, gs) <= _build.INTERP_MAX_THREADS), 1)
+        p_block, m_block, pw, gs) <= _build.MAX_THREADS), 1)
 
 
 def smem_bytes(progs: DevicePrograms, nin: int, p_block: int,
@@ -271,7 +271,6 @@ def launch(fn, i_masks, w_planes, out, progs: DevicePrograms, k: int,
     smem = smem_bytes(progs, nin, p_block, m_block, ct, pw, gs)
     _build.check_blocks(p_block, m_block, ct, smem,
                         threads=block_threads(p_block, m_block, pw, gs),
-                        max_threads=_build.INTERP_MAX_THREADS,
                         what=f"{progs.program_bytes} B of programs")
     args = [_build.ptr(i_masks), _build.ptr(w_planes), _build.ptr(out),
             _build.ptr(progs.blob), progs.meta, nin, progs.add.nout, k, P,

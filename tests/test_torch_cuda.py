@@ -398,8 +398,7 @@ def test_launch_blocks_are_checked_before_launch():
             ((2, 8, 1), (4, 16, 4), (3, 32, 1), (16, 32, 1))] == [8, 4, 8, 2]
     with pytest.raises(ValueError, match="blocks p="):
         _build.check_blocks(33, 32, 8, 0,
-                            threads=interp.block_threads(33, 32, 1, 1),
-                            max_threads=_build.INTERP_MAX_THREADS)
+                            threads=interp.block_threads(33, 32, 1, 1))
     # A ring slot shrinks by chain steps until the block fits.
     assert interp.ring_slot(progs, nin, 2, 16, 7, 4, 1, 8) == 8
     progs2 = interp.device_programs(F9, 2, False, RNE, "avx512", "cpu")

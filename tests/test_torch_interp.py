@@ -1,7 +1,7 @@
 """The netlist interpreter's programs (``kernels/bitslice_mac/program.py``)
 and its C++ core (``csrc/bitslice_interp.cuh``), on the CPU.
 
-The header is the kernel's own gate evaluators and program loop; here
+The header is the kernel's own gate evaluator and program loop; here
 ``g++`` builds it (its inline PTX has a C twin on the host) and runs it
 against ``codegen.lut3`` and ``eval_netlist``.  The schedule is checked
 by following every row through the groups.
@@ -27,32 +27,22 @@ from repro_torch.kernels.bitslice_mac import program as pg
 F8 = HOBFLOPS_FORMATS["hobflops8"]
 F9 = HOBFLOPS_FORMATS["hobflops9"]
 F16 = FPFormat(5, 10)
-LUTS = {"mux": 0, "switch": 1, "minterm": 2}   # bsi::LUT_*
 
 _HARNESS = r"""
 #include "bitslice_interp.cuh"
-extern "C" void lut_all(int method, const uint32_t* a, const uint32_t* b,
+extern "C" void lut_all(const uint32_t* a, const uint32_t* b,
                         const uint32_t* c, uint32_t* out, int n) {
-  for (int imm = 0; imm < 256; ++imm)
-    for (int i = 0; i < n; ++i) {
-      uint32_t v;
-      if (method == bsi::LUT_MUX) {
-        uint4 lo, hi;
-        bsi::lut_masks(imm, lo, hi);
-        v = bsi::lut_mux(lo, hi, a[i], b[i], c[i]);
-      } else if (method == bsi::LUT_SWITCH) {
-        v = bsi::lut_switch(imm, a[i], b[i], c[i]);
-      } else {
-        v = bsi::lop3_c(a[i], b[i], c[i], imm);
-      }
-      out[imm * n + i] = v;
-    }
+  for (int imm = 0; imm < 256; ++imm) {
+    uint4 lo, hi;
+    bsi::lut_masks(imm, lo, hi);
+    for (int i = 0; i < n; ++i)
+      out[imm * n + i] = bsi::lut_mux(lo, hi, a[i], b[i], c[i]);
+  }
 }
 // Run a program over a file of WD lane words (row r of word q at
 // r * WD + q), group by group, every slot of every word pair as a warp's
 // lanes run them: a group's slots may run in any order.
-template <int LUT>
-static void run_t(const uint2* prog, int groups, uint32_t* file) {
+extern "C" void run(const uint2* prog, int groups, uint32_t* file) {
   constexpr int WD = 4;
   uint4 masks[512];
   for (int i = 0; i < 256; ++i) bsi::mask_row(masks, i);
@@ -60,17 +50,7 @@ static void run_t(const uint2* prog, int groups, uint32_t* file) {
   for (int g = 0; g < groups; ++g)
     for (int q = 0; q < WD; q += 2)
       for (int s = 0; s < bsi::GROUP_MAX; ++s)
-        bsi::run_gate<LUT, WD>(prog[g * bsi::GROUP_MAX + s], file + q, masks,
-                               pr);
-}
-extern "C" void run(int method, const uint2* prog, int groups,
-                    uint32_t* file) {
-  if (method == bsi::LUT_MUX)
-    run_t<bsi::LUT_MUX>(prog, groups, file);
-  else if (method == bsi::LUT_SWITCH)
-    run_t<bsi::LUT_SWITCH>(prog, groups, file);
-  else
-    run_t<bsi::LUT_MINTERM>(prog, groups, file);
+        bsi::run_gate<WD>(prog[g * bsi::GROUP_MAX + s], file + q, masks, pr);
 }
 """
 
@@ -103,15 +83,15 @@ def test_imm_to_tt_inverts_lop3_imm():
         list(range(256))
 
 
-@pytest.mark.parametrize("method", list(LUTS))
-def test_lut3_evaluators_all_truth_tables(core, method):
-    """Each run-time LUT3 of the kernel, for all 256 truth tables, equals
-    ``codegen.lut3`` of the netlist truth table on random words."""
+def test_lut3_evaluators_all_truth_tables(core):
+    """The kernel's run-time LUT3 (the mux tree), for all 256 truth
+    tables, equals ``codegen.lut3`` of the netlist truth table on random
+    words."""
     rng = np.random.default_rng(1)
     n = 64
     a, b, c = _words(rng, n), _words(rng, n), _words(rng, n)
     out = np.zeros((256, n), np.uint32)
-    core.lut_all(LUTS[method], _p(a), _p(b), _p(c), _p(out), n)
+    core.lut_all(_p(a), _p(b), _p(c), _p(out), n)
     ta, tb, tc = (torch.from_numpy(x.view(np.int32)) for x in (a, b, c))
     zeros = torch.zeros_like(ta)
     for imm in range(256):
@@ -119,40 +99,38 @@ def test_lut3_evaluators_all_truth_tables(core, method):
         assert (out[imm].view(np.int32) == want).all(), imm
 
 
-def _programs():
-    """(label, graph, program) of one chain step of each kind the kernel
-    runs, hobflops8, 9 and 16."""
-    out = []
-    for name, fmt, k in (("hobflops8", F8, 2), ("hobflops9", F9, 4),
-                         ("hobflops16", F16, 1)):
-        out.append((f"{name} add k={k}",
-                    fused_add_lowered(fmt, k, False, RNE).graph,
-                    pg.add_program(fmt, k, False, RNE)))
-        out.append((f"{name} mul", fused_mul_lowered(fmt, False, RNE).graph,
-                    pg.mul_program(fmt, False, RNE)))
-    return out
+# One chain step of each kind the kernel runs: (format, chain depth of
+# the add-only program, or None for the multiplier).
+_STEPS = {"hobflops8-add-k2": (F8, 2), "hobflops8-mul": (F8, None),
+          "hobflops9-add-k4": (F9, 4), "hobflops9-mul": (F9, None),
+          "hobflops16-add-k1": (F16, 1), "hobflops16-mul": (F16, None)}
 
 
-@pytest.mark.parametrize("method", list(LUTS))
-def test_header_runs_encoded_programs(core, method):
-    """The kernel's gate, built from the header, runs each encoded chain
+@pytest.mark.parametrize("fmt,k", _STEPS.values(), ids=_STEPS.keys())
+def test_header_runs_encoded_programs(core, fmt, k):
+    """The kernel's gate, built from the header, runs an encoded chain
     step slot by slot over a file of two pairs of lane words and leaves
     every output row equal to ``eval_netlist`` of the netlist it
     encodes."""
+    if k:
+        graph = fused_add_lowered(fmt, k, False, RNE).graph
+        prog = pg.add_program(fmt, k, False, RNE)
+    else:
+        graph = fused_mul_lowered(fmt, False, RNE).graph
+        prog = pg.mul_program(fmt, False, RNE)
     rng = np.random.default_rng(2)
-    for label, graph, prog in _programs():
-        inputs = {bus: _words(rng, len(graph.inputs[bus]), 4)
-                  for bus, _ in prog.inputs}
-        want = eval_netlist(graph, inputs)["out"]
-        file = np.zeros((prog.nrows, 4), np.uint32)
-        file[pg.ONES_ROW] = 0xFFFFFFFF
-        row = pg.FIRST_INPUT_ROW
-        for bus, width in prog.inputs:
-            file[row:row + width] = inputs[bus]
-            row += width
-        words = np.ascontiguousarray(prog.words)
-        core.run(LUTS[method], _p(words), prog.groups, _p(file))
-        assert (file[prog.out_rows] == want).all(), label
+    inputs = {bus: _words(rng, len(graph.inputs[bus]), 4)
+              for bus, _ in prog.inputs}
+    want = eval_netlist(graph, inputs)["out"]
+    file = np.zeros((prog.nrows, 4), np.uint32)
+    file[pg.ONES_ROW] = 0xFFFFFFFF
+    row = pg.FIRST_INPUT_ROW
+    for bus, width in prog.inputs:
+        file[row:row + width] = inputs[bus]
+        row += width
+    words = np.ascontiguousarray(prog.words)
+    core.run(_p(words), prog.groups, _p(file))
+    assert (file[prog.out_rows] == want).all()
 
 
 def _canon(graph, nid):
