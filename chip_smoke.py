@@ -21,6 +21,22 @@ versions:
 3. runs the residual graph (maxpool, residual add, strided 3x3 at
    e5m5, avgpool head) once on each backend, bit-identical, and against
    its per-layer f32-boundary oracle, bit-identical;
+3b. serves the stack through the lane-batched engine
+   (``repro_torch.serve_conv.ConvServeEngine``, ``cuda_fused``,
+   ``max_batch`` derived from the card's free memory) with its
+   hobflops8 variant registered for overload: a scripted queue of 24
+   requests (singles and mini-batches of 2 and 4, in arrival groups that
+   close ragged, padded waves on a 5 ms deadline) with one injected
+   transient wave error, then an overload burst of 48 4-image requests
+   that degrades to hobflops8 and two single requests that recover.
+   Every response must equal ``graph.run`` on that request alone at its
+   precision (int32 bit patterns); any request quarantined, expired or
+   rejected, or a wave failure other than the injected one, fails the
+   run.  Then one wave at each bucket of the ladder (median of 5 after a
+   warm-up: wave ms, images/s, GMAC/s), one traced wave at bucket 1 and
+   one at the largest bucket (busy share, device ms and launches of
+   ``fused_mac``, the torch ops and the copies), and the engine's
+   ``stats()`` summary;
 4. compares each kernel with its plain version, bit-exact, on the 1x1
    512->512 layer and on the 3x3 layer at cin 64;
 5. times each kernel with CUDA events at the main path's shapes, and
@@ -53,8 +69,8 @@ versions:
    ``torch.matmul`` on the decoded weight;
 9. prints one JSON ``kernels`` line and, last, the ``ok`` line.
 
-Launch counts are zeroed just before steps 2-3, 7 and 8 and read just
-after each; they count CUDA kernels (the dequant matmul's tensor-core
+Launch counts are zeroed just before steps 2-3, 3b (its queue, fault
+and burst), 7 and 8 and read just after each; they count CUDA kernels (the dequant matmul's tensor-core
 route launches up to three a call, and its row also gives the calls).
 Earlier designs' times are printed from PERF.md, marked so, and are not
 in the JSON line.  Any mismatch or failure exits non-zero.  Conv weights and
@@ -91,6 +107,15 @@ FP32_LANES_PER_SM = 128        # float32 FMA lanes per SM (2 flops each)
 HW, WIDTH = 14, 512            # MobileNets' 14x14x512 stage
 REPS = 20                      # timed calls after the warm-up
 TRACED_REQS = 10               # requests under the profiler, per batch
+# The serving phase: its scripted queue's arrival groups (images a
+# request), the overload burst (requests of 4 images), the wave deadline
+# and the timed waves at each bucket.
+SERVE_GROUPS = ((1, 2, 1, 4, 1), (2, 2, 1), (4, 1, 2), (1,),
+                (4, 4, 2, 1, 1, 2), (1, 2, 4), (2, 1, 1))
+SERVE_FAULT_GROUP = 2           # the group whose wave gets the injected error
+SERVE_BURST = 48
+SERVE_DEADLINE_MS = 5.0
+SERVE_REPS = 5
 LM_ARCH = "qwen2-0.5b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 128, 16
 DQ_MS = (LM_BATCH * LM_PROMPT, LM_BATCH)   # prefill rows, decode-step rows
@@ -303,19 +328,20 @@ def device_time_us(evt) -> float:
     raise AttributeError("profiler event carries no device time")
 
 
-def trace_requests(net, x, reqs: int) -> dict:
-    """``reqs`` requests under ``torch.profiler``: the host time of the
-    traced window and the device's busy time a request (every kernel and
-    copy; one stream, so they do not overlap), and device ms and
-    launches a request by group: the two MAC kernels by name, every
-    other kernel one of the stages' torch ops."""
+def trace_requests(fn, reqs: int) -> dict:
+    """``reqs`` calls of ``fn`` under ``torch.profiler``: the host time
+    of the traced window and the device's busy time a call (every kernel
+    and copy; one stream, so they do not overlap), and device ms and
+    launches a call by group: the two MAC kernels by name, the copies
+    between host and card, every other kernel one of the stages' torch
+    ops."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reqs):
-            net(x)
+            fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / reqs
     groups = {}
@@ -323,7 +349,8 @@ def trace_requests(net, x, reqs: int) -> dict:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = next((k for k in ("fused_mac", "bitslice_mac")
-                     if f"{k}_kernel" in e.key), "torch ops")
+                     if f"{k}_kernel" in e.key),
+                    "copies" if "Memcpy" in e.key else "torch ops")
         ms, n = groups.get(name, (0.0, 0.0))
         groups[name] = (ms + device_time_us(e) / 1e3 / reqs,
                         n + e.count / reqs)
@@ -393,10 +420,13 @@ def main() -> int:
         return g.output(g.avgpool2d("head", d, window=2))
 
     graphs = {b: residual_graph(b) for b in ("cuda_fused", "cuda")}
+    # The serving phase's degraded variant: the stack in hobflops8.
+    serve_g8 = nets["cuda_fused"].graph.with_precision(
+        HOBFLOPS_FORMATS["hobflops8"])
 
     # -- 1. build -----------------------------------------------------
     variants = nets["cuda_fused"].graph.fused_variants() | \
-        graphs["cuda_fused"].fused_variants()
+        graphs["cuda_fused"].fused_variants() | serve_g8.fused_variants()
     t0 = time.perf_counter()
     libs = build_kernels(variants)
     print(f"built {len(libs)} libraries ({len(variants)} fused variants) "
@@ -496,6 +526,9 @@ def main() -> int:
                  want.astype(np.float32).view(np.int32)).all(),
                 f"5x5x8 conv on {backend} != numpy softfloat oracle")
     print("5x5x8 conv: cuda_fused == cuda == numpy softfloat oracle")
+
+    # -- 3b. the stack served through the lane-batched engine ---------
+    serve = serve_phase(args.seed, nets["cuda_fused"].graph, serve_g8)
 
     # -- 4./5. kernels against their plain versions, and timed ---------
     def layer_operands(kh, cin):
@@ -655,6 +688,7 @@ def main() -> int:
         rows.append({
             "name": name, "route": kd["route"], "source": kd["source"],
             "replaces": kd["replaces"], "launches": launches[name],
+            "launches_serve_conv": serve["launches"][name],
             "max_abs_err": kd["max_abs_err"], "bit_mismatches": 0,
             "ms": kd["1x1"]["ms"], "plain_ms": kd["plain_ms"],
             "bound_ms": kd["1x1"]["bound_ms"],
@@ -678,7 +712,7 @@ def main() -> int:
     # Where a steady request's time goes, traced.
     for img in (requests[0], requests[2]):
         x = torch.as_tensor(img, device=dev)
-        tr = trace_requests(nets["cuda_fused"], x, TRACED_REQS)
+        tr = trace_requests(lambda: nets["cuda_fused"](x), TRACED_REQS)
         if tr["busy_ms"] == 0.0:
             print(f"traced batch {img.shape[0]}: the trace holds no device "
                   f"time; busy share not measured")
@@ -705,6 +739,165 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def serve_phase(seed: int, g, g8) -> dict:
+    """The stack ``g`` (and its hobflops8 variant ``g8``) served through
+    ``ConvServeEngine`` on the card; raises :class:`SmokeFailure` on any
+    response that differs from ``graph.run`` alone or any unplanned
+    failure.  Returns the launches of the counted run."""
+    from repro_torch.serve_conv import (ConvRequest, ConvServeEngine,
+                                        FaultInjector, FaultPlan,
+                                        ServePolicy)
+    from repro_torch.serve_conv.engine import wave_bytes
+    hwc = (HW, HW, WIDTH)
+    rng = np.random.default_rng(seed)
+    faults = FaultInjector(FaultPlan(), seed=seed)
+    policy = ServePolicy(wave_deadline_ms=SERVE_DEADLINE_MS,
+                         max_wave_retries=2, retry_backoff_s=1e-3,
+                         degrade_queue_factor=1.0, degrade_patience=2,
+                         recover_patience=2)
+    eng = ConvServeEngine(g, hwc, policy=policy, faults=faults)
+    eng.register_degraded(g8, "hobflops8")
+    mb = eng.max_batch
+    free, total = torch.cuda.mem_get_info()
+    print(f"serve_conv: max_batch {mb} derived on the card ("
+          f"{wave_bytes(g, hwc):,} B an image, {free / 1e9:.1f} of "
+          f"{total / 1e9:.1f} GB free), buckets {eng.buckets}, "
+          f"{eng.macs_per_image:,} MACs an image")
+    require(mb > 4, f"serve_conv: max_batch {mb} is the TPU rule's, not "
+            f"the card's")
+    pool = rng.standard_normal((mb,) + hwc).astype(np.float32)
+    slices = {}                     # rid -> (first pool image, count)
+
+    def submit(n):
+        rid = len(slices)
+        start = (sum(c for _, c in slices.values())) % (mb - n + 1)
+        slices[rid] = (start, n)
+        img = pool[start] if n == 1 else pool[start:start + n]
+        req = ConvRequest(rid, img)
+        eng.submit(req)
+        return req
+
+    def drain():
+        while eng.pending_images():
+            if not eng.wave_ready():
+                time.sleep(max(0.0, eng.next_deadline() - time.monotonic()))
+            eng.step()
+
+    # The counted run: the scripted queue, the injected fault, the burst
+    # and the recovery.
+    reqs = []
+    zero_launches()
+    for i, group in enumerate(SERVE_GROUPS):
+        if i == SERVE_FAULT_GROUP:
+            faults.plan.wave_errors = 1
+        group_reqs = [submit(n) for n in group]
+        reqs += group_reqs
+        drain()
+        if i == SERVE_FAULT_GROUP:
+            fault_reqs = group_reqs
+    scripted_waves = eng.waves
+    burst = [submit(4) for _ in range(SERVE_BURST)]
+    drain()
+    recovery = []
+    for _ in range(2):              # light traffic: cold, cold -> recover
+        recovery.append(submit(1))
+        drain()
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    reqs += burst + recovery
+    st = eng.stats()
+    print(f"serve_conv launches ({eng.waves} waves): {launches}")
+    require(launches["fused_mac"] == 3 * eng.waves
+            and launches["bitslice_mac"] == 0,
+            f"serve_conv: {launches} for {eng.waves} waves of 3 convs")
+
+    # Nothing but the injected fault may fail.
+    require(faults.injected_wave_errors == 1
+            and all(r.attempts == 2 for r in fault_reqs),
+            "serve_conv: the injected wave error did not fire or retry")
+    bad = {k: st[k] for k in ("waves_failed", "requests_failed",
+                              "requests_expired", "requests_rejected",
+                              "requests_shed", "queued_images")}
+    require(not any(bad.values()) and not eng.quarantined
+            and not eng.expired and st["wave_exec_failures"] == 1
+            and all(r.status == "served" for r in reqs),
+            f"serve_conv: unplanned failures {bad}, "
+            f"{st['wave_exec_failures']} failed executions")
+    degraded = [r for r in burst + recovery if r.degraded]
+    require(degraded and eng.controller.level == 0
+            and recovery[-1].precision == "full"
+            and st["degradation"]["activations"] == 1,
+            f"serve_conv: overload did not degrade and recover: "
+            f"{st['degradation']}")
+    solo = {}
+    for r in reqs:
+        start, n = slices[r.rid]
+        key = (start, n, r.level)
+        if key not in solo:
+            solo[key] = (g8 if r.degraded else g).run(
+                pool[start:start + n]).cpu()
+        want = solo[key][0] if n == 1 else solo[key]
+        require(r.out.shape == tuple(want.shape) and
+                (r.out.view(np.int32) == want.numpy().view(np.int32)).all(),
+                f"serve_conv request {r.rid} ({n} images, "
+                f"{r.precision}) != graph.run alone")
+    occ = st["mean_occupancy"]
+    print(f"serve_conv: {len(reqs)} requests ({st['images_served']} images) "
+          f"in {eng.waves} waves ({scripted_waves} scripted; wave "
+          f"{fault_reqs[0].wave} retried after the injected error), "
+          f"{len(degraded)} requests served at hobflops8 and recovered; "
+          f"every response == graph.run alone at its precision "
+          f"(int32 bit patterns); 0 quarantined, expired, rejected")
+    print(f"serve_conv stats: p50 {st['p50_latency_ms']:.3f} ms, p99 "
+          f"{st['p99_latency_ms']:.3f} ms, mean occupancy {occ:.3f}, "
+          f"runner cache {st['runner_cache']}, waves by level "
+          f"{st['degradation']['images_by_level']} images, retries "
+          f"{st['wave_retries']}")
+
+    # One wave at each bucket: median of SERVE_REPS after a warm-up.
+    def wave(b):
+        n = 4 if b >= 4 else 1
+        served = eng.images_served
+        for j in range(0, b, n):
+            eng.submit(ConvRequest(-1, pool[j] if n == 1
+                                   else pool[j:j + n]))
+        done = eng.run_wave()
+        require(eng.images_served == served + b,
+                f"serve_conv: the bucket-{b} wave was not served")
+        return done, eng.wave_seconds[-1]
+
+    sweep = {}
+    for b in eng.buckets:
+        wave(b)
+        ms = statistics.median(wave(b)[1] for _ in range(SERVE_REPS)) * 1e3
+        sweep[b] = ms
+        print(f"serve_conv bucket {b:3d}: wave {ms:9.3f} ms, "
+              f"{b / ms * 1e3:9.1f} images/s, "
+              f"{b * eng.macs_per_image / ms / 1e6:8.2f} GMAC/s")
+    done, _ = wave(mb)
+    got = np.concatenate([r.out for r in done])
+    require((got.view(np.int32) ==
+             g.run(pool).cpu().numpy().view(np.int32)).all(),
+            f"serve_conv: a bucket-{mb} wave != graph.run on its images")
+
+    # Two waves traced (after one untraced profile: the first profile of
+    # a process pays the tracer's set-up).
+    trace_requests(lambda: wave(1), 1)
+    for b in (1, mb):
+        tr = trace_requests(lambda: wave(b), 1)
+        if tr["busy_ms"] == 0.0:
+            print(f"traced bucket-{b} wave: no device time in the trace; "
+                  f"busy share not measured")
+            continue
+        print(f"traced bucket-{b} wave: host {tr['host_ms']:.3f} ms, device "
+              f"busy {tr['busy_ms']:.3f} ms = "
+              f"{100 * tr['busy_ms'] / tr['host_ms']:.1f}% of it")
+        for grp, (ms, n) in sorted(tr["groups"].items(),
+                                   key=lambda kv: -kv[1][0]):
+            print(f"    {grp:12s} {ms:8.3f} ms device, {n:6.1f} launches")
+    return {"launches": launches, "max_batch": mb, "sweep_ms": sweep}
 
 
 def kernel_launches() -> dict:

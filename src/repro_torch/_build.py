@@ -218,6 +218,13 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device``: ``torch.cuda.synchronize``
+    on a CUDA device, nothing on the CPU (whose ops run in order)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def require_cuda(*tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous int32 CUDA tensor on
     one device."""

@@ -151,6 +151,11 @@ def load(library: _build.Library, variants) -> None:
                                 [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp])
 
 
+def is_bound(variant) -> bool:
+    """True once a loaded library's entry for ``variant`` is bound."""
+    return variant in _BOUND
+
+
 def _launch_fn(variant):
     if variant not in _BOUND:
         load(_build.build([build_job([variant])])[0], [variant])

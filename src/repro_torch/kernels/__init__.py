@@ -9,15 +9,17 @@ def build_kernels(fused_variants=()) -> list:
     """Build every CUDA kernel ahead of a run, one ``nvcc`` per source,
     started together: the interpreter, the dequant matmul, and one
     library holding every ``(fmt, k, extended, rounding, relu)`` fused
-    variant listed (see ``NetworkGraph.fused_variants``).  Returns the
-    loaded libraries, whose ``ptxas_log`` carries the ``-Xptxas -v``
-    report."""
+    variant listed (see ``NetworkGraph.fused_variants``) that no library
+    loaded in this process holds yet.  A source built before is loaded
+    without compiling.  Returns the loaded libraries, whose
+    ``ptxas_log`` carries the ``-Xptxas -v`` report."""
     from repro_torch import _build
     from repro_torch.core.fused_backend import kernel as fused
     from repro_torch.kernels.bitslice_mac import kernel as interp
     from repro_torch.kernels.dequant_matmul import kernel as dq
 
-    variants = sorted(set(fused_variants), key=lambda v: fused.variant_tag(*v))
+    variants = sorted({v for v in fused_variants if not fused.is_bound(v)},
+                      key=lambda v: fused.variant_tag(*v))
     jobs = [interp.build_job(), dq.build_job()]
     if variants:
         jobs.append(fused.build_job(variants))

@@ -29,6 +29,7 @@ encode/conv_core/decode for the one-layer case.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -40,6 +41,7 @@ from repro_torch.core import softfloat as sf
 from repro_torch.core.bitslice import (BitsliceActivation, pack_planes,
                                        unpack_planes, window_gather_planes)
 from repro_torch.core.fpformat import EXC_INF, RNE, FPFormat
+from repro_torch.core.fused_backend import fused_variant
 from repro_torch.kernels.bitslice_mac.kernel import (add_netlist_fn,
                                                      cast_netlist_fn,
                                                      max_netlist_fn,
@@ -373,3 +375,107 @@ def hobflops_conv2d(images, kernels, *, fmt: FPFormat, stride: int = 1,
                     backend=backend, p_block=p_block, m_block=m_block,
                     c_block=c_block, c_unroll=c_unroll)
     return decode_activations(out)
+
+
+# Errors that mean "this block-size candidate cannot launch" (shape /
+# block checks before a launch, a kernel launch that returned an error).
+# Deliberately NOT BaseException: KeyboardInterrupt and SystemExit
+# propagate out of the sweep immediately.
+_LAUNCH_ERRORS = (ValueError, TypeError, AssertionError,
+                  NotImplementedError, IndexError, RuntimeError)
+
+
+def default_tune_candidates(backend: str = "cuda_fused") -> list[dict]:
+    """Backend-aware candidate set for :func:`tune_conv_blocks`.
+
+    The CUDA backends sweep the shape of a block's chains (``m_block``
+    lane words of 8, 16 or 32, ``p_block`` rows derived to fill the
+    kernel's default chains a block), the ring slot's channels
+    (``c_block``: the kernel's default and twice it) and the chain depth
+    (``c_unroll`` 2 or 4; each depth is one more ``nvcc`` build of the
+    fused kernel).  The plain ``torch`` backend has no blocks and sweeps
+    the chain depth only.
+    """
+    if backend == "torch":
+        return [{"c_unroll": u} for u in (1, 2, 4)]
+    slots = {"cuda_fused": (_build.FUSED_C_BLOCK, 2 * _build.FUSED_C_BLOCK),
+             "cuda": (_build.C_BLOCK, 2 * _build.C_BLOCK)}[backend]
+    return [{"m_block": m, "c_block": cb, "c_unroll": u}
+            for m in (8, 16, 32) for cb in slots for u in (2, 4)]
+
+
+def tune_conv_blocks(images, kernels, *, fmt: FPFormat,
+                     backend: str = "cuda_fused", device="cuda",
+                     candidates=None, iters: int = 2, rounding: str = RNE,
+                     **conv_kw):
+    """Small sweep helper: time ``hobflops_conv2d`` over launch-block
+    candidates on ``device`` and return ``(best_blocks, results)``.
+
+    ``candidates`` is an iterable of dicts with any of
+    ``p_block/m_block/c_block/c_unroll`` set (missing keys fall back to
+    the derived defaults); by default :func:`default_tune_candidates`.
+    ``results`` maps the *resolved* parameter tuple
+    (:func:`derive_blocks` for the backend's kernel, the fused kernel's
+    chain depth as :func:`fused_variant` clamps it) to seconds/call —
+    candidates that resolve to the same launch are timed once.  Weights
+    are encoded once, outside the timings; each timing synchronises the
+    device.  Only launch-relevant errors (``_LAUNCH_ERRORS``) mark a
+    candidate as failed — interrupts re-raise immediately — and if
+    every candidate fails the final ``RuntimeError`` names the last
+    failing candidate dict and its error.
+    """
+    device = resolve_device(device)
+    if candidates is None:
+        candidates = default_tune_candidates(backend)
+    if not isinstance(kernels, ConvWeights):
+        kernels = encode_conv_weights(kernels, fmt, rounding, device)
+    kernels = kernels.to(device)
+    images = torch.as_tensor(np.asarray(images, np.float32)
+                             if not isinstance(images, torch.Tensor)
+                             else images, dtype=torch.float32, device=device)
+    khh, kww, C, M = kernels.kh, kernels.kw, kernels.cin, kernels.cout
+    B, H, W, _ = images.shape
+    # Resolve through the same clamping the launch will apply so
+    # equivalent candidates dedupe — with the exact strided Ho*Wo patch
+    # count, not the unstrided B*H*W (which could clamp differently).
+    Ho, Wo = conv_out_hw(H, W, khh, kww, conv_kw.get("stride", 1),
+                         conv_kw.get("padding", "SAME"))
+    kernel = "fused_mac" if backend == "cuda_fused" else "bitslice_mac"
+    results: dict[tuple, float] = {}
+    best, best_dt = None, float("inf")
+    last_err, last_cand = None, None
+    for cand in candidates:
+        blk = derive_blocks(B * Ho * Wo, khh * kww * C, M, kernel=kernel,
+                            **cand)
+        if backend == "cuda_fused":
+            blk["c_unroll"] = fused_variant(
+                fmt, khh * kww * C, conv_kw.get("extended", False),
+                rounding, conv_kw.get("relu", False), cand.get("c_unroll"))[1]
+        key = tuple(sorted(blk.items()))
+        if key in results:
+            continue
+
+        def run():
+            hobflops_conv2d(images, kernels, fmt=fmt, backend=backend,
+                            device=device, rounding=rounding, **cand,
+                            **conv_kw)
+        try:
+            run()                                   # build + warm
+            _build.synchronize(device)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                run()
+            _build.synchronize(device)
+            dt = (time.perf_counter() - t0) / iters
+        except _LAUNCH_ERRORS as e:                 # unlaunchable combo
+            last_err, last_cand = e, dict(cand)
+            continue
+        results[key] = dt
+        if dt < best_dt:
+            best, best_dt = dict(cand), dt
+    if best is None:
+        raise RuntimeError(
+            "tune_conv_blocks: no candidate launched; last failing "
+            f"candidate {last_cand!r} raised "
+            f"{type(last_err).__name__}: {last_err}") from last_err
+    return best, results

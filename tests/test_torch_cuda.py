@@ -1,6 +1,7 @@
-"""The port's three CUDA kernels against their plain versions, and the
-fused emitter's C body against ``eval_netlist``.  The interpreter's C++
-core is checked on the CPU in ``test_torch_interp.py``.
+"""The port's three CUDA kernels against their plain versions, the
+serving engine on the card against ``graph.run``, and the fused
+emitter's C body against ``eval_netlist``.  The interpreter's C++ core
+is checked on the CPU in ``test_torch_interp.py``.
 
 The ``gpu`` tests need a card and skip without one (each test decides,
 through the ``cuda`` fixture); run them on the card with
@@ -200,6 +201,72 @@ def test_plain_backend_refuses_card(cuda):
     with pytest.raises(ValueError):
         mac_planes(i_masks.to(cuda), w_planes.to(cuda), fmt=F8,
                    backend="torch")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["cuda", "cuda_fused"])
+def test_serve_conv_on_card_matches_graph_run(cuda, backend):
+    """A mixed queue (singles and mini-batches of 2 and 4, one injected
+    transient wave error, a ragged final wave) served on the card: each
+    response equals ``graph.run`` on that request alone, bit for bit,
+    and every conv of every wave launched its kernel once."""
+    from repro_torch.serve_conv import (ConvRequest, ConvServeEngine,
+                                        FaultInjector, FaultPlan,
+                                        ServePolicy)
+    rng = np.random.default_rng(5)
+    g = NetworkGraph(F9, backend=backend, device=cuda)
+    c1 = g.conv("c1", g.input_name, (rng.standard_normal((3, 3, 8, 40))
+                                     * 0.3).astype(np.float32), relu=True)
+    c2 = g.conv("c2", c1, (rng.standard_normal((1, 1, 40, 40)) * 0.3)
+                .astype(np.float32), relu=True)
+    g.output(g.maxpool2d("head", c2, window=2))
+    hwc = (6, 6, 8)
+    faults = FaultInjector(FaultPlan(wave_errors=1))
+    eng = ConvServeEngine(g, hwc, max_batch=8, faults=faults,
+                          policy=ServePolicy(retry_backoff_s=1e-4))
+    assert eng.device.type == "cuda" and eng.max_batch == 8
+    reqs = [ConvRequest(i, rng.standard_normal(
+        hwc if n == 1 else (n,) + hwc).astype(np.float32))
+        for i, n in enumerate((1, 2, 1, 4, 2, 1, 1, 4, 2))]
+    for r in reqs[:4]:                       # tensors on the card too
+        r.image = torch.from_numpy(r.image).to(cuda)
+    for r in reqs:
+        eng.submit(r)
+    counter = (fused.fused_mac_cuda if backend == "cuda_fused"
+               else interp.bitslice_mac_cuda)
+    before = counter.launches
+    done = eng.run()
+    assert [r.rid for r in done] == list(range(len(reqs)))
+    assert counter.launches - before == 2 * eng.waves
+    assert faults.injected_wave_errors == 1 and done[0].attempts == 2
+    for r in done:
+        img = torch.as_tensor(r.image, device=cuda)
+        solo = g.run(img[None] if img.ndim == 3 else img).cpu()
+        solo = solo[0] if img.ndim == 3 else solo
+        assert torch.equal(torch.from_numpy(r.out).view(torch.int32),
+                           solo.view(torch.int32)), r.rid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["cuda", "cuda_fused"])
+def test_tune_conv_blocks_on_card(cuda, backend):
+    """The default sweep launches on the card, and a graph pinned to its
+    winner computes what the default launch computes, bit for bit."""
+    from repro_torch.kernels.conv2d_bitslice.ops import (
+        default_tune_candidates, tune_conv_blocks)
+    rng = np.random.default_rng(6)
+    img = rng.standard_normal((2, 6, 6, 8)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, 8, 40)) * 0.3).astype(np.float32)
+    best, results = tune_conv_blocks(img, k, fmt=F9, backend=backend,
+                                     device=cuda, iters=1, relu=True)
+    assert best in default_tune_candidates(backend)
+    assert len(results) == len(default_tune_candidates(backend))
+    outs = []
+    for blocks in (None, best):
+        g = NetworkGraph(F9, backend=backend, device=cuda)
+        g.output(g.conv("c", g.input_name, k, relu=True, blocks=blocks))
+        outs.append(g.run(img).cpu())
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
 
 
 # ---------------------------------------------------------------------------
