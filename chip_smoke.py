@@ -3,7 +3,8 @@
 
 Drives the HOBFLOPS CNN inference path at the paper's MobileNets
 14x14x512 width in hobflops9, and quantized-weight LM serving at
-qwen2-0.5b's full width, through the entry points a user calls, and
+qwen2-0.5b's, olmoe-1b-7b's, mamba2-2.7b's and seamless-m4t-medium's
+full width, through the entry points a user calls, and
 holds all three hand-written CUDA kernels against their plain torch
 versions:
 
@@ -57,6 +58,23 @@ versions:
    must equal a numpy decode of its codes bit for bit; one prefill and
    three decode steps of each are traced with ``torch.profiler`` (host
    time, device busy time, kernel launches);
+7b. serves the other LM families at full width and depth, each tree
+   drawn on the card by a CUDA generator: olmoe-1b-7b (64 experts
+   top-8) and mamba2-2.7b (SSD, 320-token prompts: its 256-token chunk
+   pads and carries) through ``serve_demo`` at batch 4, 8 tokens, with
+   float32 and hobflops9 weights after a 2-token warm-up each;
+   seamless-m4t-medium (enc-dec, 128 frames and 128 prompt tokens) with
+   float32 weights.  olmoe's layer-0 dispatch ``moe`` at capacity 8.0
+   is held against ``moe_dense_ref`` on the card, and one decode step of
+   each weight format is traced (and mamba2-2.7b's float32 one).  On
+   mamba2-2.7b at float32 compute a ``decode_step`` after a 319-token
+   ``prefill`` is held against ``forward_logits``, and ``ServeEngine``
+   serves a queue of 6 requests in 4 slots (one stopping at its EOS)
+   and, in one slot, equals the plain prefill/decode loop token for
+   token.  jamba-v0.1-52b and
+   internvl2-26b, which need 209.5 and 79.5 GB at full depth and float32,
+   run as smoke twins: decode after prefill against the forward.  No
+   kernel of the port's own is on this path;
 8. runs the dequant matmul through its entry point at each quantized
    projection shape of that model, at M = 512 (a prefill's rows) and
    M = 4 (a decode step's), on layer 0's weights packed in hobflops9:
@@ -70,8 +88,9 @@ versions:
 9. prints one JSON ``kernels`` line and, last, the ``ok`` line.
 
 Launch counts are zeroed just before steps 2-3, 3b (its queue, fault
-and burst), 7 and 8 and read just after each; they count CUDA kernels (the dequant matmul's tensor-core
-route launches up to three a call, and its row also gives the calls).
+and burst), 7, 7b and 8 and read just after each; they count CUDA
+kernels (the dequant matmul's tensor-core route launches up to three a
+call, and its row also gives the calls).
 Earlier designs' times are printed from PERF.md, marked so, and are not
 in the JSON line.  Any mismatch or failure exits non-zero.  Conv weights and
 images come from ``numpy.random.default_rng(--seed)``.
@@ -86,6 +105,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import re
 import statistics
@@ -119,6 +139,22 @@ SERVE_REPS = 5
 LM_ARCH = "qwen2-0.5b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 128, 16
 DQ_MS = (LM_BATCH * LM_PROMPT, LM_BATCH)   # prefill rows, decode-step rows
+# Step 7b: the other LM families.  Batch and tokens of each serve_demo
+# call; mamba2-2.7b's prompt is 320 so its 256-token chunk pads and
+# carries across two chunks.
+FAM_BATCH, FAM_GEN = 4, 8
+FAM_PROMPT = {"olmoe-1b-7b": 128, "mamba2-2.7b": 320,
+              "seamless-m4t-medium": 128}
+# The engine's queue on mamba2-2.7b: (prompt tokens, max_new) a request,
+# the one given an EOS, and the slots.
+ENGINE_QUEUE = ((16, 4), (128, 8), (48, 6), (96, 8), (32, 5), (64, 7))
+ENGINE_EOS_AT, ENGINE_SLOTS = 1, 4
+# float32 bounds of step 7b, as a share of the largest reference value:
+# dispatch moe against moe_dense_ref (the reference's own test allows
+# 1e-4 relative), and a decode step after prefill against the full
+# forward (the reference allows 3e-2; the path difference measured on
+# the CPU is ~1e-6 of the largest logit).
+MOE_TOL, DECODE_TOL = 1e-4, 1e-3
 # The earlier designs' times on an H100 80GB HBM3 at 700 W, as PERF.md
 # gives them: fused_mac before its warp-specialised redesign and
 # bitslice_mac before its redesign as a grouped interpreter, at batch 1
@@ -729,6 +765,9 @@ def main() -> int:
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
 
     params = lm_phase(args.seed, dev)
+    t0 = time.perf_counter()
+    lm_families_phase(args.seed, dev)
+    print(f"step 7b wall time: {time.perf_counter() - t0:.1f} s")
     rows.append(dequant_phase(args.seed, dev, params, n_sm, clock_mhz))
     print(f"clocks.sm, power.draw, temperature.gpu after the LM phases: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -1044,6 +1083,235 @@ def lm_phase(seed: int, dev) -> dict:
             for ms, n, name in tr["top"]:
                 print(f"    {ms:8.3f} ms {n:6.0f}x  {name[:90]}")
     return params
+
+
+def serve_pair(cfg, params, prompt_len: int, quants, seed: int) -> dict:
+    """``serve_demo`` on ``params`` at batch ``FAM_BATCH`` and
+    ``FAM_GEN`` tokens for each weight format in ``quants``, each after
+    a 2-token warm-up call; prints and returns each run's stats.  Logits
+    must be finite and of the right shape."""
+    from repro_torch.launch.serve import serve_demo
+    serve = dict(batch=FAM_BATCH, prompt_len=prompt_len, seed=seed,
+                 params=params, device=params["embed"]["table"].device,
+                 print_fn=lambda m: None)
+    out = {}
+    for quant in quants:
+        serve_demo(cfg, quant=quant, **{**serve, "gen_len": 2})
+        st = out[quant] = {}
+        serve_demo(cfg, quant=quant, gen_len=FAM_GEN, stats=st, **serve)
+        require(bool(torch.isfinite(st["logits"]).all()),
+                f"{cfg.name} serve_demo ({quant}): logits not finite")
+        require(st["logits"].shape == (FAM_GEN, FAM_BATCH, cfg.vocab_padded),
+                f"{cfg.name} serve_demo ({quant}): logits "
+                f"{tuple(st['logits'].shape)}")
+        line = (f"serve_demo {cfg.name}, {quant or 'float32'} weights, "
+                f"batch {FAM_BATCH}, prompt {prompt_len}, {FAM_GEN} tokens: "
+                f"prefill {st['prefill_ms']:.3f} ms, decode "
+                f"{st['decode_ms_per_step']:.3f} ms/step, "
+                f"{st['tok_s']:.1f} tok/s")
+        if quant:
+            q, d = st["quantized_bytes"]
+            line += (f"; quantize_params {st['quantize_s']:.3f} s, {q} B of "
+                     f"planes and scales against {d} B in bf16 "
+                     f"({q / d:.4f})")
+        print(line)
+    return out
+
+
+def traced_decode(cfg, params, deq, seed: int, dev) -> None:
+    """Prints one traced decode step of ``cfg`` (``trace_lm_steps``):
+    host ms, device busy ms and share, launches, the top kernels."""
+    tr = trace_lm_steps(cfg, params, deq, seed, dev, steps=1)["decode"]
+    print(f"traced {cfg.name} {'hobflops9' if deq else 'float32'} decode "
+          f"step (batch {LM_BATCH}, {LM_PROMPT}-token prompt): host "
+          f"{tr['host_ms']:.3f} ms, device busy {tr['busy_ms']:.3f} ms "
+          f"({100 * tr['busy_ms'] / tr['host_ms']:.1f}%), "
+          f"{tr['launches']:.0f} kernel launches")
+    for ms, n, name in tr["top"]:
+        print(f"    {ms:8.3f} ms {n:6.0f}x  {name[:90]}")
+
+
+def full_init(cfg, seed: int, dev):
+    """``cfg``'s parameters drawn on the card by a CUDA generator."""
+    from repro_torch.models import model_schema
+    from repro_torch.models.schema import init_params, param_count
+    schema = model_schema(cfg)
+    t0 = time.perf_counter()
+    params = init_params(schema, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    torch.cuda.synchronize()
+    n = param_count(schema)
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}: {n} parameters ({n * 4 / 1e9:.1f} GB float32), "
+          f"initialised on the card in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def decode_against_forward(cfg, params, batch: dict, dev) -> float:
+    """At float32 compute: ``decode_step`` of the last token after a
+    ``prefill`` of the others against ``forward_logits`` at that
+    position, and the prefill's own last logits against the position
+    before.  Returns the larger error as a share of the largest logit,
+    which must be at most ``DECODE_TOL``."""
+    from repro_torch.models import decode_step, forward_logits, prefill
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    full, _ = forward_logits(params, batch, cfg)
+    cache, lg_pre, length = prefill(
+        params, dict(batch, tokens=tokens[:, :S - 1]), cfg,
+        S + cfg.num_prefix, dtype=torch.float32)
+    lg_dec, _ = decode_step(params, tokens[:, S - 1], cache, length, cfg)
+    top = float(full[:, -2:].abs().max())
+    err = max(float((lg_dec - full[:, -1]).abs().max()),
+              float((lg_pre - full[:, -2]).abs().max())) / top
+    require(bool(torch.isfinite(full).all()) and err <= DECODE_TOL,
+            f"{cfg.name}: decode after prefill against the forward: "
+            f"{err:.3e} of the largest logit {top:.3f}, bound {DECODE_TOL}")
+    print(f"{cfg.name} float32 compute, {S - 1}-token prefill + decode_step "
+          f"against forward_logits at position {S - 1} (and prefill's last "
+          f"logits at {S - 2}): max err {err:.3e} of the largest logit "
+          f"{top:.3f} (bound {DECODE_TOL})")
+    return err
+
+
+def engine_queue(cfg, params, dev, seed: int) -> None:
+    """``ServeEngine`` on ``cfg``: the ``ENGINE_QUEUE`` requests in
+    ``ENGINE_SLOTS`` slots, once to learn the EOS request's second token
+    and again with it as that request's EOS; every request must
+    complete, the EOS one at its EOS.  Then the ``n_slots=1`` engine on
+    one prompt against the plain prefill/decode loop, token for token."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve import Request, ServeEngine
+    rng = np.random.default_rng(seed + 2)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n, _ in ENGINE_QUEUE]
+    max_len = max(n for n, _ in ENGINE_QUEUE) + max(m for _, m in
+                                                    ENGINE_QUEUE)
+
+    def serve(eos_id=None, slots=ENGINE_SLOTS, queue=ENGINE_QUEUE):
+        eng = ServeEngine(cfg, params, n_slots=slots, max_len=max_len)
+        reqs = [Request(i, prompts[i], max_new=m,
+                        eos_id=eos_id if i == ENGINE_EOS_AT else None)
+                for i, (_, m) in enumerate(queue)]
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        return done, eng, (time.perf_counter() - t0) * 1e3
+
+    probe, _, _ = serve()
+    eos = probe[ENGINE_EOS_AT].out[1]
+    done, eng, ms = serve(eos)
+    for r, (n, m) in zip(done, ENGINE_QUEUE):
+        stop = (r.eos_id is not None and r.out[-1] == r.eos_id)
+        require(r.done and (len(r.out) == m or (stop and len(r.out) < m)),
+                f"engine request {r.rid}: {len(r.out)} of {m} tokens, done "
+                f"{r.done}")
+    r = done[ENGINE_EOS_AT]
+    require(r.out == probe[ENGINE_EOS_AT].out[:len(r.out)]
+            and r.out[-1] == eos and len(r.out) < ENGINE_QUEUE[
+                ENGINE_EOS_AT][1],
+            f"engine: the EOS request gave {r.out}, probe "
+            f"{probe[ENGINE_EOS_AT].out}, EOS {eos}")
+    print(f"ServeEngine {cfg.name} ({ENGINE_SLOTS} slots, cache float32): "
+          f"{len(done)} requests (prompts "
+          f"{[n for n, _ in ENGINE_QUEUE]}, max_new "
+          f"{[m for _, m in ENGINE_QUEUE]}) all complete, request "
+          f"{ENGINE_EOS_AT} at its EOS after {len(r.out)} tokens; "
+          f"{eng.total_decode_steps} decode steps, {eng.total_tokens} "
+          f"decoded tokens, {ms:.1f} ms")
+
+    one, eng1, _ = serve(slots=1, queue=ENGINE_QUEUE[:1])
+    tokens = torch.from_numpy(prompts[0]).long()[None].to(dev)
+    cache, lg, pos = prefill(params, {"tokens": tokens}, cfg, max_len,
+                             dtype=torch.float32)
+    tok = torch.argmax(lg, -1).to(torch.int32)
+    loop = [int(tok[0])]
+    for i in range(ENGINE_QUEUE[0][1] - 1):
+        lg, cache = decode_step(params, tok, cache, pos + i, cfg)
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        loop.append(int(tok[0]))
+    require(one[0].out == loop, f"engine n_slots=1 {one[0].out} != plain "
+                                f"loop {loop}")
+    print(f"ServeEngine n_slots=1 == the plain prefill/decode loop on a "
+          f"{ENGINE_QUEUE[0][0]}-token prompt: {loop}")
+
+
+def lm_families_phase(seed: int, dev) -> None:
+    """Step 7b: the MoE, SSM, enc-dec, hybrid and VLM families.  No
+    kernel of the port's own runs here (MoE dispatch, the SSD scan and
+    cross-attention are torch ops, as the reference's are jnp ops); the
+    launch counts are read to show it."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models.moe import moe, moe_dense_ref
+    from repro_torch.quant.apply import make_deq, quantize_params
+
+    zero_launches()
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # olmoe-1b-7b, full width and depth.
+    cfg = get_config("olmoe-1b-7b")
+    params = full_init(cfg, seed, dev)
+    serve_pair(cfg, params, FAM_PROMPT[cfg.name], (None, "hobflops9"), seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn((FAM_BATCH, FAM_PROMPT[cfg.name], cfg.d_model),
+                    generator=gen, device=dev)
+    mp = {k: v[0] for k, v in params["blocks"]["b0"]["moe"].items()}
+    wide = dataclasses.replace(cfg, moe_capacity_factor=8.0)
+    y, aux = moe(mp, x, wide)
+    want = moe_dense_ref(mp, x, wide)
+    err = float((y - want).abs().max()) / float(want.abs().max())
+    require(bool(torch.isfinite(y).all()) and err <= MOE_TOL,
+            f"olmoe layer 0 moe vs moe_dense_ref: {err:.3e} of the largest "
+            f"output, bound {MOE_TOL}")
+    print(f"olmoe-1b-7b layer 0 dispatch moe (capacity 8.0, nothing dropped)"
+          f" against moe_dense_ref on the card, x {tuple(x.shape)} float32: "
+          f"max err {err:.3e} of the largest output (bound {MOE_TOL}); aux "
+          f"{float(aux):.4f}")
+    traced_decode(cfg, params, None, seed, dev)
+    qparams, _ = quantize_params(params, cfg, "hobflops9")
+    traced_decode(cfg, qparams, make_deq(), seed, dev)
+    del params, qparams, mp, x, y, want
+    torch.cuda.empty_cache()
+
+    # mamba2-2.7b, full width and depth.
+    cfg = get_config("mamba2-2.7b")
+    params = full_init(cfg, seed, dev)
+    S = FAM_PROMPT[cfg.name]
+    serve_pair(cfg, params, S, (None, "hobflops9"), seed)
+    traced_decode(cfg, params, None, seed, dev)
+    tokens = torch.randint(0, cfg.vocab, (FAM_BATCH, S), generator=gen,
+                           device=dev)
+    decode_against_forward(cfg, params, {"tokens": tokens}, dev)
+    engine_queue(cfg, params, dev, seed)
+    del params
+    torch.cuda.empty_cache()
+
+    # seamless-m4t-medium, full width and depth.
+    cfg = get_config("seamless-m4t-medium")
+    params = full_init(cfg, seed, dev)
+    serve_pair(cfg, params, FAM_PROMPT[cfg.name], (None,), seed)
+    del params
+    torch.cuda.empty_cache()
+
+    # jamba-v0.1-52b and internvl2-26b as smoke twins: at full depth and
+    # float32 they need 209.5 GB and 79.5 GB, more than one card holds.
+    for name in ("jamba-v0.1-52b", "internvl2-26b"):
+        cfg = dataclasses.replace(smoke_config(name), moe_capacity_factor=8.0)
+        params = full_init(cfg, seed, dev)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 32),
+                                         generator=gen, device=dev)}
+        if cfg.frontend != "none":
+            batch["prefix"] = torch.randn(
+                (2, cfg.num_prefix, cfg.frontend_dim), generator=gen,
+                device=dev)
+        decode_against_forward(cfg, params, batch, dev)
+    print(f"step 7b launches (no kernel of the port's own is on this path): "
+          f"{kernel_launches()}")
 
 
 def dequant_phase(seed: int, dev, params: dict, n_sm: int,

@@ -4,8 +4,8 @@
 ``smoke_config(name)`` — a small model of the same family/topology for
                          CPU tests (same layer period, same block kinds).
 
-Configs are data only; the port's model code runs the dense family
-(``repro_torch.models.transformer``).
+Configs are data only; ``repro_torch.models.transformer`` interprets
+them.
 """
 from __future__ import annotations
 

@@ -18,7 +18,6 @@ from repro_torch._build import resolve_device
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import model_schema
 from repro_torch.models.schema import init_params
-from repro_torch.models.transformer import require_dense
 from repro_torch.quant.apply import quantize_params, quantized_bytes
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
 
@@ -39,14 +38,16 @@ def serve_demo(cfg, *, batch: int = 2, prompt_len: int = 32,
     Parameters come from ``init_params`` with
     ``torch.Generator().manual_seed(seed)`` and the prompt from the same
     generator, unless ``params`` (a float parameter tree on ``device``)
-    or ``prompt`` (``[batch, prompt_len]`` token ids) are given.  With
+    or ``prompt`` (``[batch, prompt_len]`` token ids) are given; then,
+    from the same generator, a VLM's prefix embeddings ``[batch,
+    num_prefix, frontend_dim]`` and an enc-dec model's encoder frames
+    ``[batch, prompt_len, frontend_dim]``.  With
     ``quant`` the targeted weights are stored in that HOBFLOPS format.
     ``stats``, when given, receives the times (each bounded by
     synchronising the device), the quantized footprint and every step's
     logits ``[gen_len, batch, V]``.
     """
     device = resolve_device(device)
-    require_dense(cfg)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(seed)
@@ -55,7 +56,14 @@ def serve_demo(cfg, *, batch: int = 2, prompt_len: int = 32,
     if prompt is None:
         prompt = torch.randint(0, cfg.vocab, (batch, prompt_len),
                                generator=gen)
-    prompt = torch.as_tensor(prompt).to(device)
+    batch_in = {"tokens": torch.as_tensor(prompt)}
+    if cfg.frontend != "none" and cfg.family != "encdec":
+        batch_in["prefix"] = torch.randn(
+            (batch, cfg.num_prefix, cfg.frontend_dim), generator=gen)
+    if cfg.family == "encdec":
+        batch_in["frames"] = torch.randn(
+            (batch, prompt_len, cfg.frontend_dim), generator=gen)
+    batch_in = {k: v.to(device) for k, v in batch_in.items()}
     out = {} if stats is None else stats
     deq = None
     if quant:
@@ -76,7 +84,7 @@ def serve_demo(cfg, *, batch: int = 2, prompt_len: int = 32,
 
     _sync(device)
     t0 = time.perf_counter()
-    cache, logits, length = prefill(params, {"tokens": prompt})
+    cache, logits, length = prefill(params, batch_in)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     _sync(device)
     out["prefill_ms"] = (time.perf_counter() - t0) * 1e3

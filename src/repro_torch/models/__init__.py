@@ -1,4 +1,4 @@
-"""Model substrate: configs, schemas, layers and the dense LM stack."""
+"""Model substrate: configs, schemas, layers and full-model assembly."""
 from .config import ModelConfig, QuantConfig, ShapeConfig, SHAPES
 from .transformer import (decode_step, forward_logits, init_cache,
                           model_schema, prefill)

@@ -1,15 +1,16 @@
-"""Model assembly for the dense decoder-only family.
+"""Model assembly: decoder-only / hybrid / MoE / SSM / enc-dec / VLM.
 
-The layer stack is grouped into *super-layers* of ``cfg.scan_period()``
-blocks whose parameters are stacked along a leading depth axis under
-``blocks/b<k>`` (the reference's tree, so ``repro_torch.convert`` maps
-one onto the other by name).  The reference's ``lax.scan`` over depth
-is a Python loop here that slices layer ``i`` of every leaf.
+One code path serves all ten architectures.  The layer stack is grouped
+into *super-layers* of ``cfg.scan_period()`` blocks (the smallest
+repeating pattern of (attention?, moe?) kinds) whose parameters are
+stacked along a leading depth axis under ``blocks/b<k>`` (the
+reference's tree, so ``repro_torch.convert`` maps one onto the other by
+name).  The reference's ``lax.scan`` over depth is a Python loop here
+that slices layer ``i`` of every leaf.
 
-Only the dense family runs: a config whose blocks need MoE, Mamba,
-cross-attention or a modality frontend raises ``NotImplementedError``
-(ROADMAP queue 1 item 8 ports them).  Training (``lm_loss``, remat)
-waits for the training slice.
+Caches (decode) and the per-segment KV and SSM state (prefill) mirror
+the block structure.  Training (``lm_loss``, remat) waits for the
+training slice.
 """
 from __future__ import annotations
 
@@ -19,56 +20,58 @@ import torch
 
 from repro_torch.quant.storage import QuantizedTensor
 
-from .attention import (attention, attn_schema, decode_attention,
-                        init_kv_cache)
+from .attention import (_softmax_attend, attention, attn_schema,
+                        decode_attention, init_kv_cache)
 from .config import ModelConfig
-from .layers import (embed, embed_schema, logits, logits_schema, mlp,
-                     mlp_schema, rmsnorm, rmsnorm_schema)
-from .schema import stack
+from .layers import (dtype_of, embed, embed_schema, logits, logits_schema,
+                     mlp, mlp_schema, rmsnorm, rmsnorm_schema, weight_getter)
+from .mamba import mamba, mamba_decode, mamba_init_state, mamba_schema
+from .moe import moe, moe_schema
+from .schema import P, stack
 
 Tree = Any
-
-
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless every block of ``cfg`` is a
-    dense attention + MLP block without a frontend."""
-    needs = []
-    if cfg.moe_experts:
-        needs.append("MoE")
-    if any(not attn for attn, _ in cfg.layer_kinds()):
-        needs.append("Mamba")
-    if cfg.family == "encdec":
-        needs.append("cross-attention")
-    if cfg.frontend != "none":
-        needs.append("a modality frontend")
-    if needs:
-        raise NotImplementedError(
-            f"{cfg.name} needs {', '.join(needs)} blocks; the port runs the "
-            f"dense family only (ROADMAP queue 1 item 8 ports the rest)")
 
 
 # ---------------------------------------------------------------------------
 # Schemas
 # ---------------------------------------------------------------------------
-def block_schema(cfg: ModelConfig) -> Tree:
-    require_dense(cfg)
+def block_schema(cfg: ModelConfig, kind: tuple[bool, bool],
+                 cross: bool = False) -> Tree:
+    is_attn, is_moe = kind
     d = cfg.d_model
-    s: dict = {"pre_norm": rmsnorm_schema(d), "attn": attn_schema(cfg)}
+    s: dict = {"pre_norm": rmsnorm_schema(d)}
+    if is_attn:
+        s["attn"] = attn_schema(cfg)
+    else:
+        s["mamba"] = mamba_schema(cfg)
+    if cross:
+        s["cross_norm"] = rmsnorm_schema(d)
+        s["cross"] = attn_schema(cfg)
     if cfg.d_ff > 0:
         s["mlp_norm"] = rmsnorm_schema(d)
-        s["mlp"] = mlp_schema(cfg)
+        s["moe" if is_moe else "mlp"] = (
+            moe_schema(cfg) if is_moe else mlp_schema(cfg))
     return s
 
 
 def model_schema(cfg: ModelConfig) -> Tree:
-    require_dense(cfg)
     period = cfg.scan_period()
     depth = cfg.n_layers // period
-    return {"embed": embed_schema(cfg),
-            "blocks": {f"b{k}": stack(block_schema(cfg), depth)
-                       for k in range(period)},
-            "final_norm": rmsnorm_schema(cfg.d_model),
-            "logits": logits_schema(cfg)}
+    kinds = cfg.layer_kinds()[:period]
+    cross = cfg.family == "encdec"
+    s: dict = {"embed": embed_schema(cfg)}
+    s["blocks"] = {f"b{k}": stack(block_schema(cfg, kinds[k], cross), depth)
+                   for k in range(period)}
+    s["final_norm"] = rmsnorm_schema(cfg.d_model)
+    s["logits"] = logits_schema(cfg)
+    if cfg.frontend != "none":
+        s["frontend"] = {"proj": P((cfg.frontend_dim, cfg.d_model),
+                                   (None, "embed"))}
+    if cfg.family == "encdec":
+        s["enc_blocks"] = {"e0": stack(block_schema(cfg, (True, False)),
+                                       cfg.enc_layers)}
+        s["enc_norm"] = rmsnorm_schema(cfg.d_model)
+    return s
 
 
 def layer(tree: Tree, i: int) -> Tree:
@@ -81,47 +84,98 @@ def layer(tree: Tree, i: int) -> Tree:
 
 
 # ---------------------------------------------------------------------------
-# Block application
+# Cross attention (enc-dec): no RoPE, bidirectional over memory.
 # ---------------------------------------------------------------------------
-def apply_block(bp, x, cfg: ModelConfig, *, mode: str, cache=None,
-                pos: int | None = None, deq=None):
-    """Returns (x, aux, cache_out); aux (the MoE balance loss) is 0.0
-    for a dense block.  mode: prefill | decode.
+def cross_kv(p, memory, cfg: ModelConfig, deq=None):
+    get = weight_getter(p, deq)
+    B = memory.shape[0]
+    k = memory @ get("wk").to(memory.dtype)
+    v = memory @ get("wv").to(memory.dtype)
+    dh = cfg.head_dim
+    return (k.reshape(B, -1, cfg.n_kv_heads, dh),
+            v.reshape(B, -1, cfg.n_kv_heads, dh))
 
-    cache_out: for prefill, this block's KV of the processed segment;
-    for decode, the fresh ``k_new``/``v_new`` of the token.
+
+def cross_attention(p, x, kv, cfg: ModelConfig, deq=None):
+    """x [B,T,d] queries over precomputed memory (k, v)."""
+    get = weight_getter(p, deq)
+    B, T, _ = x.shape
+    q = (x @ get("wq").to(x.dtype)).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    o = _softmax_attend(q, *kv, causal=False)
+    return o.reshape(B, T, -1) @ get("wo").to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Block application (one of the `period` positions)
+# ---------------------------------------------------------------------------
+def apply_block(bp, x, cfg: ModelConfig, kind, *, mode: str, cache=None,
+                pos: int | None = None, memory=None, causal: bool = True,
+                deq=None):
+    """Returns (x, aux, cache_out); aux is the MoE balance loss (0.0 for
+    a block without MoE).  mode: prefill | decode.
+
+    cache_out: for prefill, this block's fresh cache entries (KV of the
+    processed segment, final SSM state, cross KV of the memory); for
+    decode, the token's ``k_new``/``v_new`` or the new SSM state.
     """
-    h = rmsnorm(bp["pre_norm"], x, cfg.norm_eps)
-    if mode == "decode":
-        a, cache_out = decode_attention(bp["attn"], h, cfg, cache, pos,
-                                        deq=deq)
-    elif mode == "prefill":
-        a, (k, v) = attention(bp["attn"], h, cfg, deq=deq)
-        cache_out = {"k": k, "v": v}
-    else:
+    if mode not in ("prefill", "decode"):
         raise ValueError(f"mode {mode!r}: the port serves (prefill | "
                          f"decode); training waits for its slice")
+    is_attn, is_moe = kind
+    aux = 0.0
+    cache_out = {}
+    h = rmsnorm(bp["pre_norm"], x, cfg.norm_eps)
+    if is_attn:
+        if mode == "decode":
+            a, new_kv = decode_attention(bp["attn"], h, cfg, cache, pos,
+                                         deq=deq)
+            cache_out.update(new_kv)
+        else:
+            a, (k, v) = attention(bp["attn"], h, cfg, causal=causal, deq=deq)
+            cache_out.update({"k": k, "v": v})
+    elif mode == "decode":
+        a, cache_out = mamba_decode(bp["mamba"], h, cfg,
+                                    {"conv": cache["conv"],
+                                     "ssd": cache["ssd"]}, deq=deq)
+    else:
+        a, cache_out = mamba(bp["mamba"], h, cfg, deq=deq)
     x = x + a
+    if "cross" in bp:
+        hc = rmsnorm(bp["cross_norm"], x, cfg.norm_eps)
+        if mode == "decode":
+            kv = (cache["ck"], cache["cv"])   # read-only at decode
+        else:
+            kv = cross_kv(bp["cross"], memory, cfg, deq=deq)
+            cache_out.update({"ck": kv[0], "cv": kv[1]})
+        x = x + cross_attention(bp["cross"], hc, kv, cfg, deq=deq)
     if cfg.d_ff > 0:
         h = rmsnorm(bp["mlp_norm"], x, cfg.norm_eps)
-        x = x + mlp(bp["mlp"], h, cfg, deq=deq)
-    return x, 0.0, cache_out
+        if is_moe:
+            y, aux = moe(bp["moe"], h, cfg, deq=deq)
+        else:
+            y = mlp(bp["mlp"], h, cfg, deq=deq)
+        x = x + y
+    return x, aux, cache_out
 
 
 def apply_stack(blocks, x, cfg: ModelConfig, *, mode: str, caches=None,
-                pos: int | None = None, deq=None):
+                pos: int | None = None, memory=None, causal: bool = True,
+                deq=None, kinds=None):
     """blocks: {"b<k>": stacked subtree}; caches mirrors blocks (decode)
     or is None.  Returns (x, aux, caches_out) with each block's outputs
     stacked along depth."""
     keys = [f"b{k}" for k in range(len(blocks))]
+    if kinds is None:
+        kinds = cfg.layer_kinds()[:len(keys)]
     depth = blocks[keys[0]]["pre_norm"]["scale"].shape[0]
     aux = 0.0
     outs = {key: [] for key in keys}
     for i in range(depth):
-        for key in keys:
+        for key, kind in zip(keys, kinds):
             c = None if caches is None else layer(caches[key], i)
-            x, a, co = apply_block(layer(blocks[key], i), x, cfg, mode=mode,
-                                   cache=c, pos=pos, deq=deq)
+            x, a, co = apply_block(layer(blocks[key], i), x, cfg, kind,
+                                   mode=mode, cache=c, pos=pos,
+                                   memory=memory, causal=causal, deq=deq)
             aux = aux + a
             outs[key].append(co)
     stacked = {key: {n: torch.stack([o[n] for o in outs[key]])
@@ -130,20 +184,41 @@ def apply_stack(blocks, x, cfg: ModelConfig, *, mode: str, caches=None,
 
 
 # ---------------------------------------------------------------------------
-# Forward passes
+# Embedding front: tokens (+ prefix embeds for VLM)
 # ---------------------------------------------------------------------------
 def _embed_input(params, batch, cfg: ModelConfig):
-    """-> (x [B, S, d], n_prefix)."""
-    require_dense(cfg)
-    return embed(params["embed"], batch["tokens"], cfg), 0
+    """-> (x [B, S_total, d], n_prefix)."""
+    x = embed(params["embed"], batch["tokens"], cfg)
+    n_prefix = 0
+    if cfg.frontend != "none" and cfg.family != "encdec":
+        prefix = batch["prefix"].to(x.dtype)
+        proj = params["frontend"]["proj"].to(x.dtype)
+        x = torch.cat([prefix @ proj, x], dim=1)
+        n_prefix = prefix.shape[1]
+    return x, n_prefix
 
 
+def encode_memory(params, batch, cfg: ModelConfig):
+    """Enc-dec encoder: frames [B,Se,F] -> memory [B,Se,d].  Like the
+    reference's, it runs without the dequant hook."""
+    cdt = dtype_of(cfg.compute_dtype)
+    x = batch["frames"].to(cdt) @ params["frontend"]["proj"].to(cdt)
+    x, _, _ = apply_stack({"b0": params["enc_blocks"]["e0"]}, x, cfg,
+                          mode="prefill", causal=False, kinds=[(True, False)])
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
 def forward_logits(params, batch, cfg: ModelConfig, *, deq=None):
-    """-> (logits [B, S, V] float32, aux)."""
-    x, _ = _embed_input(params, batch, cfg)
+    """-> (logits [B, S_text, V] float32, aux)."""
+    x, n_prefix = _embed_input(params, batch, cfg)
+    memory = (encode_memory(params, batch, cfg)
+              if cfg.family == "encdec" else None)
     x, aux, _ = apply_stack(params["blocks"], x, cfg, mode="prefill",
-                            deq=deq)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+                            memory=memory, deq=deq)
+    x = rmsnorm(params["final_norm"], x[:, n_prefix:, :], cfg.norm_eps)
     lg = logits(params.get("logits", {}), x, cfg,
                 embed_params=params["embed"], deq=deq)
     return lg, aux
@@ -152,31 +227,52 @@ def forward_logits(params, batch, cfg: ModelConfig, *, deq=None):
 # ---------------------------------------------------------------------------
 # Serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
-def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
                dtype=torch.bfloat16, device="cuda") -> Tree:
-    require_dense(cfg)
+    """Per block position: ``k``/``v`` [depth, B, max_len, Hkv, D] for
+    attention, ``conv`` [depth, B, K-1, conv_dim] and ``ssd`` (float32
+    whatever ``dtype``) for Mamba, ``ck``/``cv`` [depth, B, enc_len, Hkv,
+    D] for enc-dec."""
     period = cfg.scan_period()
-    return {f"b{k}": init_kv_cache(cfg, batch, max_len,
-                                   cfg.n_layers // period, dtype, device)
-            for k in range(period)}
+    depth = cfg.n_layers // period
+    kinds = cfg.layer_kinds()[:period]
+
+    def one(kind):
+        is_attn, _ = kind
+        if is_attn:
+            c = init_kv_cache(cfg, batch, max_len, depth, dtype, device)
+        else:
+            st = mamba_init_state(cfg, batch, dtype, device)
+            c = {n: t[None].repeat(depth, *(1,) * t.ndim)
+                 for n, t in st.items()}
+        if cfg.family == "encdec":
+            ckv = init_kv_cache(cfg, batch, enc_len, depth, dtype, device)
+            c.update(ck=ckv["k"], cv=ckv["v"])
+        return c
+
+    return {f"b{k}": one(kinds[k]) for k in range(period)}
 
 
 def prefill(params, batch, cfg: ModelConfig, max_len: int,
             dtype=torch.bfloat16, deq=None):
     """Process the prompt; build a max_len cache.  Returns
-    (cache, last_logits [B, V], prompt length)."""
+    (cache, last_logits [B, V], prompt length with the prefix)."""
     x, _ = _embed_input(params, batch, cfg)
+    memory = (encode_memory(params, batch, cfg)
+              if cfg.family == "encdec" else None)
     S = x.shape[1]
     x, _, fresh = apply_stack(params["blocks"], x, cfg, mode="prefill",
-                              deq=deq)
+                              memory=memory, deq=deq)
     xl = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     lg = logits(params.get("logits", {}), xl, cfg,
                 embed_params=params["embed"], deq=deq)[:, 0, :]
-    cache = init_cache(cfg, x.shape[0], max_len, dtype=dtype,
-                       device=x.device)
+    cache = init_cache(cfg, x.shape[0], max_len,
+                       enc_len=0 if memory is None else memory.shape[1],
+                       dtype=dtype, device=x.device)
     for key, c in cache.items():
-        for name in ("k", "v"):
-            c[name][:, :, :S] = fresh[key][name].to(dtype)
+        for name, dst in c.items():
+            (dst[:, :, :S] if name in ("k", "v") else dst).copy_(
+                fresh[key][name])
     return cache, lg, S
 
 
@@ -185,17 +281,22 @@ def decode_step(params, token, cache, pos: int, cfg: ModelConfig,
     """token [B] int; pos (current cache length).  Returns (logits
     [B, V], cache).
 
-    The layer loop reads the cache; the fresh per-layer (k, v) come
-    back stacked and are written at ``pos`` once per cache tensor, IN
-    PLACE: the returned cache is the one passed in (the reference
+    The layer loop reads the cache; the fresh per-layer ``k``/``v`` and
+    SSM states come back stacked and are written once per cache tensor,
+    IN PLACE: the returned cache is the one passed in (the reference
     returns an updated copy; a copy here would move the whole cache
-    every step)."""
+    every step).  ``ck``/``cv`` are read-only."""
     x = embed(params["embed"], token[:, None], cfg)
     x, _, outs = apply_stack(params["blocks"], x, cfg, mode="decode",
                              caches=cache, pos=pos, deq=deq)
     for key, c in cache.items():
-        c["k"][:, :, pos:pos + 1] = outs[key]["k_new"].to(c["k"].dtype)
-        c["v"][:, :, pos:pos + 1] = outs[key]["v_new"].to(c["v"].dtype)
+        o = outs[key]
+        if "k_new" in o:
+            c["k"][:, :, pos:pos + 1] = o["k_new"].to(c["k"].dtype)
+            c["v"][:, :, pos:pos + 1] = o["v_new"].to(c["v"].dtype)
+        if "conv" in o:
+            c["conv"].copy_(o["conv"])
+            c["ssd"].copy_(o["ssd"])
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     lg = logits(params.get("logits", {}), x, cfg,
                 embed_params=params["embed"], deq=deq)[:, 0, :]

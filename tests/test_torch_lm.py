@@ -205,17 +205,6 @@ def test_param_count_and_init_match_reference_schema():
     assert torch.equal(again["embed"]["table"], got["embed"]["table"])
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-2.7b",
-                                  "jamba-v0.1-52b", "seamless-m4t-medium",
-                                  "internvl2-26b"])
-def test_non_dense_configs_raise(arch):
-    cfg = smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        model_schema(cfg)
-    with pytest.raises(NotImplementedError, match="dense family"):
-        serve_demo(cfg, device="cpu", print_fn=lambda *_: None)
-
-
 def test_serve_demo_default_device_refuses_without_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -216,8 +216,10 @@ def test_import_loads_no_jax_and_no_reference():
     assert "repro_torch.core.fused_backend.kernel" in mods
     assert {"repro_torch.quant", "repro_torch.quant.apply",
             "repro_torch.models", "repro_torch.models.transformer",
+            "repro_torch.models.moe", "repro_torch.models.mamba",
             "repro_torch.configs", "repro_torch.configs.qwen2_0_5b",
             "repro_torch.serve", "repro_torch.serve.steps",
+            "repro_torch.serve.engine",
             "repro_torch.launch.serve", "repro_torch.kernels.dequant_matmul",
             "repro_torch.kernels.dequant_matmul.ops"} <= set(mods)
     code = (
