@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
 Drives the HOBFLOPS CNN inference path at the paper's MobileNets
-14x14x512 width in hobflops9, and quantized-weight LM serving at
+14x14x512 width in hobflops9, quantized-weight LM serving at
 qwen2-0.5b's, olmoe-1b-7b's, mamba2-2.7b's and seamless-m4t-medium's
-full width, through the entry points a user calls, and
+full width, and LM training at qwen2-0.5b's full width, through the
+entry points a user calls, and
 holds all three hand-written CUDA kernels against their plain torch
 versions:
 
@@ -75,7 +76,22 @@ versions:
    internvl2-26b, which need 209.5 and 79.5 GB at full depth and float32,
    run as smoke twins: decode after prefill against the forward.  No
    kernel of the port's own is on this path;
-8. runs the dequant matmul through its entry point at each quantized
+8. trains qwen2-0.5b at full width and depth through ``train_loop``
+   (parameters drawn on the card; bf16 compute, float32 parameters and
+   moments; sequence 4096, global batch 8 in 4 remat'd micro-batches of
+   2, train_4k's batch of 256 cut for one card and the time limit):
+   4 steps with a checkpoint every 2 into a temporary directory and a
+   simulated crash after step 2, then a second run that restores step 1
+   and replays steps 2-3.  Losses and gradient norms must be finite (the
+   norms > 0), and the resumed step 2's loss within ``RESUME_TOL`` of
+   the first run's.  Prints the steady step's ms, tokens/s and model
+   TFLOP/s, the peak memory, the host's batch ms, each checkpoint's
+   bytes and device->host and file seconds, the restore's seconds, one
+   traced step (busy share, launches, top kernels); then the remat
+   check: at sequence 512, batch 1, gradients with remat against those
+   without, within ``REMAT_TOL`` of a leaf's largest.  No kernel of the
+   port's own is on this path (the reference trains with ``jnp``);
+9. runs the dequant matmul through its entry point at each quantized
    projection shape of that model, at M = 512 (a prefill's rows) and
    M = 4 (a decode step's), on layer 0's weights packed in hobflops9:
    held against its plain version within the float32 summation bound,
@@ -85,10 +101,10 @@ versions:
    for w_f > 10), its bound (two TF32 products, each weight decoded
    once, the bytes) and the f32-FMA bound, the plain version and
    ``torch.matmul`` on the decoded weight;
-9. prints one JSON ``kernels`` line and, last, the ``ok`` line.
+10. prints one JSON ``kernels`` line and, last, the ``ok`` line.
 
 Launch counts are zeroed just before steps 2-3, 3b (its queue, fault
-and burst), 7, 7b and 8 and read just after each; they count CUDA
+and burst), 7, 7b, 8 and 9 and read just after each; they count CUDA
 kernels (the dequant matmul's tensor-core route launches up to three a
 call, and its row also gives the calls).
 Earlier designs' times are printed from PERF.md, marked so, and are not
@@ -155,6 +171,20 @@ ENGINE_EOS_AT, ENGINE_SLOTS = 1, 4
 # forward (the reference allows 3e-2; the path difference measured on
 # the CPU is ~1e-6 of the largest logit).
 MOE_TOL, DECODE_TOL = 1e-4, 1e-3
+# Step 8: qwen2-0.5b trained at full width and depth.  Sequence 4096 is
+# train_4k's; its global batch of 256 is cut to 8 (micro-batches of 2,
+# accumulated 4 times) for one card and the script's time limit.  Four
+# steps, a checkpoint every 2, a crash after step 2, then a resumed run;
+# the resumed step 2 must give the first run's loss within RESUME_TOL
+# relative (the embedding's backward adds with atomics on the card, so
+# the loss is not bit-stable).  The remat check runs at sequence 512,
+# micro-batch 1, where the kept activations fit: gradients with remat
+# within REMAT_TOL * max|leaf| of those without.
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_SEQ, TRAIN_MICRO, TRAIN_N_MICRO = 4096, 2, 4
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_KILL_AT = 4, 2, 2
+REMAT_SEQ = 512
+RESUME_TOL, REMAT_TOL = 1e-3, 1e-4
 # The earlier designs' times on an H100 80GB HBM3 at 700 W, as PERF.md
 # gives them: fused_mac before its warp-specialised redesign and
 # bitslice_mac before its redesign as a grouped interpreter, at batch 1
@@ -768,6 +798,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_families_phase(args.seed, dev)
     print(f"step 7b wall time: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_phase(args.seed, dev, card)
+    print(f"step 8 wall time: {time.perf_counter() - t0:.1f} s ({card})")
     rows.append(dequant_phase(args.seed, dev, params, n_sm, clock_mhz))
     print(f"clocks.sm, power.draw, temperature.gpu after the LM phases: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -1312,6 +1345,175 @@ def lm_families_phase(seed: int, dev) -> None:
         decode_against_forward(cfg, params, batch, dev)
     print(f"step 7b launches (no kernel of the port's own is on this path): "
           f"{kernel_launches()}")
+
+
+def remat_check(cfg, params, seed: int, dev) -> float:
+    """Gradients of ``lm_loss`` with remat against those without, on one
+    ``REMAT_SEQ``-token sequence; returns the largest error as a share
+    of its leaf's largest gradient, which must be at most
+    ``REMAT_TOL``."""
+    from repro_torch.data.pipeline import make_batch, place_batch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import lm_loss
+    from repro_torch.models.schema import _leaves, _unflatten
+    batch = place_batch(make_batch(SyntheticLM(cfg.vocab, REMAT_SEQ, 1,
+                                               seed=seed), 0), dev)
+    grads = {}
+    for remat in (True, False):
+        live = [p.detach().requires_grad_() for p in _leaves(params)]
+        loss, _ = lm_loss(_unflatten(params, live), batch, cfg,
+                          remat=remat)
+        grads[remat] = torch.autograd.grad(loss, live)
+        del loss, live
+    worst = 0.0
+    for a, b in zip(grads[True], grads[False]):
+        require(bool(torch.isfinite(a).all()), "remat gradients not finite")
+        worst = max(worst, float((a - b).abs().max()) /
+                    max(float(b.abs().max()), 1e-30))
+    require(worst <= REMAT_TOL, f"remat against no remat: {worst:.3e} of a "
+                                f"leaf's largest gradient, bound {REMAT_TOL}")
+    return worst
+
+
+def trace_train_step(step_fn, state, batch) -> dict:
+    """One train step under ``torch.profiler``: host ms (synchronised),
+    device busy ms, kernel launches and the kernels with the most device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kern = [(device_time_us(e) / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"host_ms": host_ms, "busy_ms": sum(k[0] for k in kern),
+            "launches": sum(k[1] for k in kern),
+            "top": sorted(kern, reverse=True)[:8]}
+
+
+def train_phase(seed: int, dev, card: str) -> None:
+    """Step 8: qwen2-0.5b trained at full width and depth through
+    ``train_loop`` (bf16 compute, float32 parameters and moments),
+    crashed after step ``TRAIN_KILL_AT`` and resumed from its
+    checkpoint; the remat check; readings.  No kernel of the port's own
+    is on this path (the reference trains with ``jnp`` only)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import dataset_for, make_batch, place_batch
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model_schema
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.schema import param_count
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    n_params = param_count(model_schema(cfg))
+    batch_size = TRAIN_MICRO * TRAIN_N_MICRO
+    shape = ShapeConfig("train_4k, batch cut", TRAIN_SEQ, batch_size, "train")
+    tc = TrainConfig(opt=OptConfig(warmup_steps=20, total_steps=TRAIN_STEPS),
+                     n_micro=TRAIN_N_MICRO)
+    tokens = TRAIN_SEQ * batch_size
+    attn_flops = 12 * cfg.n_layers * TRAIN_SEQ ** 2 *         cfg.n_heads * cfg.head_dim * batch_size
+    flops = 6 * n_params * tokens + attn_flops
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    free = shutil.disk_usage(ckpt).free
+    print(f"step 8: {TRAIN_ARCH} training at full width and depth "
+          f"({n_params} parameters), bf16 compute, float32 parameters and "
+          f"moments; sequence {TRAIN_SEQ} (train_4k's), global batch "
+          f"{batch_size} = {TRAIN_N_MICRO} micro-batches of {TRAIN_MICRO} "
+          f"(train_4k's 256 cut for one card and the time limit), "
+          f"{tokens} tokens a step; checkpoints in {ckpt} "
+          f"({free / 1e9:.1f} GB free)")
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        logs, first, second = [], {}, {}
+
+        def log(m):
+            logs.append(m)
+            print(f"    {m}")
+
+        run = dict(steps=TRAIN_STEPS, tc=tc, ckpt_dir=ckpt,
+                   ckpt_every=TRAIN_CKPT_EVERY, hb_dir=f"{ckpt}/hb",
+                   device=dev, seed=seed, log_every=1, print_fn=log)
+        _, losses1 = train_loop(cfg, shape, kill_at=TRAIN_KILL_AT,
+                                stats=first, **run)
+        torch.cuda.empty_cache()
+        state, losses2 = train_loop(cfg, shape, stats=second, **run)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = kernel_launches()
+        gnorms = first["grad_norm"] + second["grad_norm"]
+        require(all(np.isfinite(losses1 + losses2)),
+                f"train losses not finite: {losses1} {losses2}")
+        require(all(np.isfinite(gnorms)) and min(gnorms) > 0,
+                f"grad norms {gnorms}")
+        require(len(losses1) == TRAIN_KILL_AT + 1 and
+                any(f"resuming at {TRAIN_KILL_AT}" in m for m in logs) and
+                second["restored_step"] == TRAIN_KILL_AT - 1,
+                f"the resumed run did not resume at {TRAIN_KILL_AT}")
+        rel = abs(losses2[0] - losses1[-1]) / abs(losses1[-1])
+        require(rel <= RESUME_TOL,
+                f"resumed step {TRAIN_KILL_AT} loss {losses2[0]} against "
+                f"{losses1[-1]}: {rel:.3e} relative, bound {RESUME_TOL}")
+        print(f"step 8 resume: step {TRAIN_KILL_AT} loss {losses1[-1]:.6f} "
+              f"in the first run, {losses2[0]:.6f} resumed ({rel:.3e} "
+              f"relative, bound {RESUME_TOL}); losses {losses1} then "
+              f"{losses2}; grad norms {gnorms}")
+
+        steady = first["step_ms"][1:] + second["step_ms"][1:]
+        step_ms = statistics.median(steady)
+        print(f"step 8 steady step ({card}): {step_ms:.1f} ms (median of "
+              f"{[round(x, 1) for x in steady]}; first steps "
+              f"{first['step_ms'][0]:.1f} / {second['step_ms'][0]:.1f} ms), "
+              f"{tokens / step_ms * 1e3:.0f} tokens/s, model "
+              f"{flops / step_ms / 1e9:.1f} TFLOP/s ({flops / 1e12:.2f} "
+              f"TFLOP a step = 6 N T with N {n_params}, T {tokens}: "
+              f"{6 * n_params * tokens / 1e12:.2f}, plus attention's "
+              f"12 L S^2 (H dh) B = 12 x {cfg.n_layers} x {TRAIN_SEQ}^2 x "
+              f"{cfg.n_heads * cfg.head_dim} x {batch_size}: "
+              f"{attn_flops / 1e12:.2f}; remat's recompute not counted)")
+        print(f"step 8 peak memory ({card}; max_memory_allocated over both "
+              f"runs): {peak / 1e9:.2f} GB; host make_batch + place_batch "
+              f"{statistics.median(first['batch_ms'] + second['batch_ms']):.1f}"
+              f" ms a step (median)")
+        for name, st in (("first run", first), ("resumed run", second)):
+            for sv in st["saves"]:
+                print(f"step 8 checkpoint save ({card}; {name}, step "
+                      f"{sv['step']}): {sv['bytes']} B, device->host "
+                      f"{sv['d2h_s']:.2f} s, files {sv['files_s']:.2f} s")
+        print(f"step 8 restore of step {second['restored_step']} ({card}): "
+              f"{second['restore_s']:.2f} s")
+        print(f"step 8 launches (no kernel of the port's own is on this "
+              f"path): {launches}")
+
+        # One more step, traced.
+        ds = dataset_for(cfg, shape, seed)
+        batch = place_batch(make_batch(ds, TRAIN_STEPS), dev)
+        tr = trace_train_step(make_train_step(cfg, tc), state, batch)
+        print(f"step 8 traced step ({card}): host {tr['host_ms']:.1f} ms, "
+              f"device busy {tr['busy_ms']:.1f} ms "
+              f"({100 * tr['busy_ms'] / tr['host_ms']:.1f}%), "
+              f"{tr['launches']} kernel launches; top kernels:")
+        for ms, n, name in tr["top"]:
+            print(f"    {ms:9.2f} ms {n:6d}x  {name[:240]}")
+        worst = remat_check(cfg, state["params"], seed, dev)
+        print(f"step 8 remat check ({card}; sequence {REMAT_SEQ}, batch 1): "
+              f"max err "
+              f"{worst:.3e} of a leaf's largest gradient (bound "
+              f"{REMAT_TOL})")
+        del state
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
 
 
 def dequant_phase(seed: int, dev, params: dict, n_sm: int,

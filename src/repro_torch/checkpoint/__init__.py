@@ -1,0 +1,5 @@
+from .store import (CheckpointManager, latest_step, restore_checkpoint,
+                    save_checkpoint)
+
+__all__ = ["CheckpointManager", "save_checkpoint", "restore_checkpoint",
+           "latest_step"]

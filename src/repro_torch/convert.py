@@ -4,8 +4,10 @@ Both packages encode the same f32 kernels to the same bit planes; these
 helpers wrap planes produced by the reference (``np.asarray`` of its
 ``ConvWeights.planes``) as the port's :class:`ConvWeights`, and an LM
 parameter tree (``jax.tree.map(np.asarray, params)``) as the port's
-tree, so a test can feed both packages identical parameters.  Nothing
-here imports the reference: everything arrives as plain arrays.
+tree, so a test can feed both packages identical parameters; a train
+state (parameters, AdamW moments, step) likewise.  Nothing here imports
+the reference: everything arrives as plain arrays (bfloat16 ones as
+``ml_dtypes`` arrays, whose bytes are carried across unchanged).
 """
 from __future__ import annotations
 
@@ -39,6 +41,14 @@ def graph_weights_from_jax(weights: dict, device="cuda") -> dict:
             for name, (planes, geometry) in weights.items()}
 
 
+def _tensor(a) -> torch.Tensor:
+    """A numpy array (bfloat16 included) as a CPU tensor of its dtype."""
+    a = np.array(a)                                  # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def lm_params_from_jax(tree, device="cuda"):
     """A reference LM parameter tree as numpy -> the port's tree on
     ``device``.  Dicts keep their keys; arrays become tensors; a
@@ -57,6 +67,17 @@ def lm_params_from_jax(tree, device="cuda"):
                 .to(device),
                 sfmt=StorageFormat(w_e, w_f), layout=layout,
                 shape=tuple(shape))
-        return torch.from_numpy(np.array(t)).to(device)
+        return _tensor(t).to(device)
 
     return walk(tree)
+
+
+def train_state_from_jax(state, device="cuda"):
+    """A reference train state as numpy (``{"params", "opt": {"m", "v"},
+    "step"}``) -> the port's, on ``device``: the step a 0-d int32
+    tensor, moments in their own dtype."""
+    return {"params": lm_params_from_jax(state["params"], device),
+            "opt": {k: lm_params_from_jax(state["opt"][k], device)
+                    for k in ("m", "v")},
+            "step": _tensor(np.asarray(state["step"], np.int32)).to(
+                resolve_device(device))}

@@ -1,1 +1,2 @@
-"""Entry points of the port: ``serve`` (LM serving demo)."""
+"""Entry points of the port: ``serve`` (LM serving demo) and ``train``
+(the training loop)."""

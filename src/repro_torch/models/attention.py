@@ -1,5 +1,5 @@
-"""GQA/MQA attention: causal prefill over the whole prompt, and cached
-decode of one token.
+"""GQA/MQA attention: causal attention over a whole sequence (train and
+prefill), and cached decode of one token.
 
 Prefill computes each query row's softmax over the whole key row in
 float32 (the reference's blockwise ``_flash`` is the same softmax taken
@@ -66,7 +66,11 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, deq=None):
 # Causal attention over the whole prompt (prefill)
 # ---------------------------------------------------------------------------
 def _softmax_attend(q, k, v, *, causal: bool):
-    """q [B,S,Hq,D], k/v [B,S,Hkv,D] -> [B,S,Hq,D], float32 scores."""
+    """q [B,S,Hq,D], k/v [B,S,Hkv,D] -> [B,S,Hq,D], float32 scores.
+
+    The row max only shifts the exponent, and the softmax does not
+    depend on it, so it is taken without a gradient path: its backward
+    would be a mask of the full score tensor whose terms sum to zero."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -78,7 +82,7 @@ def _softmax_attend(q, k, v, *, causal: bool):
         kp = torch.arange(Sk, device=q.device)
         bias = torch.where(qp[:, None] >= kp[None, :], 0.0, NEG_INF)
         s = s + bias.to(torch.float32)[None, :, None, None, :]
-    m = torch.clamp(torch.amax(s, dim=-1), min=NEG_INF)
+    m = torch.clamp(torch.amax(s.detach(), dim=-1), min=NEG_INF)
     pw = torch.exp(s - m[..., None])
     denom = torch.sum(pw, dim=-1)
     o = torch.einsum("btkgu,bukd->btkgd", pw, vf)

@@ -1,8 +1,10 @@
 """Parameter schemas: one source of truth for shapes and init.
 
 A model describes its parameters as a nested dict of :class:`P` leaves
-(shape + logical axes + init rule); ``init_params`` materializes it and
-``param_count`` counts it.  The logical axes are kept from the reference
+(shape + logical axes + init rule); ``init_params`` materializes it,
+``abstract_params`` gives its shapes and dtypes as meta tensors (the
+checkpoint reader's template; nothing is allocated) and ``param_count``
+counts it.  The logical axes are kept from the reference
 for its sharding rules, which the port does not use yet.
 """
 from __future__ import annotations
@@ -41,6 +43,19 @@ def _leaves(tree: Tree) -> list:
     return [tree]
 
 
+def _unflatten(tree: Tree, leaves) -> Tree:
+    """``tree`` with its leaves, in sorted-key order, replaced by
+    ``leaves``."""
+    it = iter(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return walk(tree)
+
+
 def stack(schema: Tree, n: int) -> Tree:
     """Prepend an unsharded leading 'layers' dim of size n to every leaf."""
     return _map(lambda p: P((n,) + p.shape, ("layers",) + p.axes, p.init,
@@ -70,6 +85,12 @@ def init_params(schema: Tree, generator: torch.Generator, device,
         return {k: init_params(schema[k], generator, device, dtype)
                 for k in sorted(schema)}
     return _leaf_init(schema, generator, dtype, device)
+
+
+def abstract_params(schema: Tree, dtype=torch.float32) -> Tree:
+    """``schema`` as meta-device tensors of its shapes and ``dtype``."""
+    return _map(lambda p: torch.empty(p.shape, dtype=dtype, device="meta"),
+                schema)
 
 
 def param_count(schema: Tree) -> int:

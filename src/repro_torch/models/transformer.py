@@ -6,17 +6,20 @@ repeating pattern of (attention?, moe?) kinds) whose parameters are
 stacked along a leading depth axis under ``blocks/b<k>`` (the
 reference's tree, so ``repro_torch.convert`` maps one onto the other by
 name).  The reference's ``lax.scan`` over depth is a Python loop here
-that slices layer ``i`` of every leaf.
+over the layers of every leaf (``unstack``).
 
 Caches (decode) and the per-segment KV and SSM state (prefill) mirror
-the block structure.  Training (``lm_loss``, remat) waits for the
-training slice.
+the block structure.  Training (``lm_loss``) runs the stack in train
+mode: nothing is cached, and each super-layer's body is rematerialized
+(``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint``).
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.quant.storage import QuantizedTensor
 
@@ -24,7 +27,8 @@ from .attention import (_softmax_attend, attention, attn_schema,
                         decode_attention, init_kv_cache)
 from .config import ModelConfig
 from .layers import (dtype_of, embed, embed_schema, logits, logits_schema,
-                     mlp, mlp_schema, rmsnorm, rmsnorm_schema, weight_getter)
+                     mlp, mlp_schema, rmsnorm, rmsnorm_schema, softmax_xent,
+                     weight_getter)
 from .mamba import mamba, mamba_decode, mamba_init_state, mamba_schema
 from .moe import moe, moe_schema
 from .schema import P, stack
@@ -74,13 +78,17 @@ def model_schema(cfg: ModelConfig) -> Tree:
     return s
 
 
-def layer(tree: Tree, i: int) -> Tree:
-    """Layer ``i`` of a stacked subtree (tensors and quantized leaves)."""
+def unstack(tree: Tree, depth: int) -> list[Tree]:
+    """A stacked subtree as one tree a layer.  A tensor leaf is unbound
+    once, so that the backward pass gathers its layers' gradients in one
+    node (a slice a layer would add a zero-padded, depth-sized gradient
+    for every layer); a quantized leaf is sliced by its ``layer``."""
     if isinstance(tree, dict):
-        return {k: layer(v, i) for k, v in tree.items()}
+        per = {k: unstack(v, depth) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(depth)]
     if isinstance(tree, QuantizedTensor):
-        return tree.layer(i)
-    return tree[i]
+        return [tree.layer(i) for i in range(depth)]
+    return torch.unbind(tree, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -112,15 +120,15 @@ def apply_block(bp, x, cfg: ModelConfig, kind, *, mode: str, cache=None,
                 pos: int | None = None, memory=None, causal: bool = True,
                 deq=None):
     """Returns (x, aux, cache_out); aux is the MoE balance loss (0.0 for
-    a block without MoE).  mode: prefill | decode.
+    a block without MoE).  mode: train | prefill | decode.
 
-    cache_out: for prefill, this block's fresh cache entries (KV of the
-    processed segment, final SSM state, cross KV of the memory); for
-    decode, the token's ``k_new``/``v_new`` or the new SSM state.
+    cache_out: for train and prefill, this block's fresh cache entries
+    (KV of the processed segment, final SSM state, cross KV of the
+    memory; the train stack drops them); for decode, the token's
+    ``k_new``/``v_new`` or the new SSM state.
     """
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode {mode!r}: the port serves (prefill | "
-                         f"decode); training waits for its slice")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: one of train | prefill | decode")
     is_attn, is_moe = kind
     aux = 0.0
     cache_out = {}
@@ -160,24 +168,48 @@ def apply_block(bp, x, cfg: ModelConfig, kind, *, mode: str, cache=None,
 
 def apply_stack(blocks, x, cfg: ModelConfig, *, mode: str, caches=None,
                 pos: int | None = None, memory=None, causal: bool = True,
-                deq=None, kinds=None):
+                deq=None, kinds=None, remat: bool | None = None):
     """blocks: {"b<k>": stacked subtree}; caches mirrors blocks (decode)
     or is None.  Returns (x, aux, caches_out) with each block's outputs
-    stacked along depth."""
+    stacked along depth; in train mode caches_out is ``{}``.
+
+    ``remat`` (default: train mode) runs each super-layer's body under
+    non-reentrant ``torch.utils.checkpoint``: the backward pass
+    recomputes its activations instead of keeping them.  The recomputed
+    forward is the same computation (MoE routing sorts stably, so it
+    picks the same experts)."""
     keys = [f"b{k}" for k in range(len(blocks))]
     if kinds is None:
         kinds = cfg.layer_kinds()[:len(keys)]
+    if remat is None:
+        remat = mode == "train"
     depth = blocks[keys[0]]["pre_norm"]["scale"].shape[0]
+    layers = {key: unstack(blocks[key], depth) for key in keys}
+    cache_layers = (None if caches is None else
+                    {key: unstack(caches[key], depth) for key in keys})
+
+    def body(i, x, aux):
+        outs = {}
+        for key, kind in zip(keys, kinds):
+            c = None if cache_layers is None else cache_layers[key][i]
+            x, a, outs[key] = apply_block(
+                layers[key][i], x, cfg, kind, mode=mode, cache=c, pos=pos,
+                memory=memory, causal=causal, deq=deq)
+            aux = aux + a
+        return x, aux, outs
+
     aux = 0.0
     outs = {key: [] for key in keys}
     for i in range(depth):
-        for key, kind in zip(keys, kinds):
-            c = None if caches is None else layer(caches[key], i)
-            x, a, co = apply_block(layer(blocks[key], i), x, cfg, kind,
-                                   mode=mode, cache=c, pos=pos,
-                                   memory=memory, causal=causal, deq=deq)
-            aux = aux + a
-            outs[key].append(co)
+        if remat:
+            x, aux, co = checkpoint(body, i, x, aux, use_reentrant=False)
+        else:
+            x, aux, co = body(i, x, aux)
+        if mode != "train":
+            for key in keys:
+                outs[key].append(co[key])
+    if mode == "train":
+        return x, aux, {}
     stacked = {key: {n: torch.stack([o[n] for o in outs[key]])
                      for n in outs[key][0]} for key in keys}
     return x, aux, stacked
@@ -198,30 +230,49 @@ def _embed_input(params, batch, cfg: ModelConfig):
     return x, n_prefix
 
 
-def encode_memory(params, batch, cfg: ModelConfig):
-    """Enc-dec encoder: frames [B,Se,F] -> memory [B,Se,d].  Like the
-    reference's, it runs without the dequant hook."""
+def encode_memory(params, batch, cfg: ModelConfig, remat: bool = False):
+    """Enc-dec encoder: frames [B,Se,F] -> memory [B,Se,d], its layers
+    rematerialized with ``remat`` (train mode).  Like the reference's,
+    it runs without the dequant hook."""
     cdt = dtype_of(cfg.compute_dtype)
     x = batch["frames"].to(cdt) @ params["frontend"]["proj"].to(cdt)
     x, _, _ = apply_stack({"b0": params["enc_blocks"]["e0"]}, x, cfg,
-                          mode="prefill", causal=False, kinds=[(True, False)])
+                          mode="train" if remat else "prefill",
+                          causal=False, kinds=[(True, False)], remat=remat)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
-def forward_logits(params, batch, cfg: ModelConfig, *, deq=None):
-    """-> (logits [B, S_text, V] float32, aux)."""
+def forward_logits(params, batch, cfg: ModelConfig, *, mode: str = "train",
+                   deq=None, remat: bool | None = None):
+    """-> (logits [B, S_text, V] float32, aux).  ``remat`` (default:
+    train mode) rematerializes the decoder's and the encoder's layers."""
+    if remat is None:
+        remat = mode == "train"
     x, n_prefix = _embed_input(params, batch, cfg)
-    memory = (encode_memory(params, batch, cfg)
+    memory = (encode_memory(params, batch, cfg, remat=remat)
               if cfg.family == "encdec" else None)
-    x, aux, _ = apply_stack(params["blocks"], x, cfg, mode="prefill",
-                            memory=memory, deq=deq)
+    x, aux, _ = apply_stack(params["blocks"], x, cfg, mode=mode,
+                            memory=memory, deq=deq, remat=remat)
     x = rmsnorm(params["final_norm"], x[:, n_prefix:, :], cfg.norm_eps)
     lg = logits(params.get("logits", {}), x, cfg,
                 embed_params=params["embed"], deq=deq)
     return lg, aux
+
+
+def lm_loss(params, batch, cfg: ModelConfig, aux_weight: float = 0.01,
+            remat: bool = True):
+    """-> (total, {"xent", "aux"}): the mean token cross-entropy of a
+    train-mode forward plus ``aux_weight`` times the MoE balance loss,
+    all 0-d float32 tensors.  ``remat=False`` keeps every layer's
+    activations (the plain version the remat checks compare with)."""
+    lg, aux = forward_logits(params, batch, cfg, mode="train", remat=remat)
+    loss = softmax_xent(lg, batch["labels"])
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    total = loss + aux_weight * aux
+    return total, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -221,7 +221,12 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.serve", "repro_torch.serve.steps",
             "repro_torch.serve.engine",
             "repro_torch.launch.serve", "repro_torch.kernels.dequant_matmul",
-            "repro_torch.kernels.dequant_matmul.ops"} <= set(mods)
+            "repro_torch.kernels.dequant_matmul.ops",
+            "repro_torch.launch.train", "repro_torch.train",
+            "repro_torch.train.step", "repro_torch.optim",
+            "repro_torch.optim.adamw", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.store"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {['repro_torch'] + mods!r}:\n"
