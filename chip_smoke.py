@@ -4,8 +4,8 @@
 Drives the HOBFLOPS CNN inference path at the paper's MobileNets
 14x14x512 width in hobflops9, quantized-weight LM serving at
 qwen2-0.5b's, olmoe-1b-7b's, mamba2-2.7b's and seamless-m4t-medium's
-full width, and LM training at qwen2-0.5b's full width, through the
-entry points a user calls, and
+full width, and LM training at qwen2-0.5b's full width (on one card and
+on a one-card device mesh), through the entry points a user calls, and
 holds all three hand-written CUDA kernels against their plain torch
 versions:
 
@@ -91,7 +91,22 @@ versions:
    check: at sequence 512, batch 1, gradients with remat against those
    without, within ``REMAT_TOL`` of a leaf's largest.  No kernel of the
    port's own is on this path (the reference trains with ``jnp``);
-9. runs the dequant matmul through its entry point at each quantized
+9. runs the distribution layer on a one-card mesh: (9a) starts a
+   one-rank NCCL group with ``launch.mesh.host_mesh``; (9b) trains step
+   8's configuration for 2 steps through ``train_loop(mesh=)`` (state
+   and batches as DTensors, the activation anchors on) and holds each
+   loss to step 8's first run within ``RESUME_TOL``, printing its steady
+   step beside step 8's and its ``max_memory_allocated``; (9c) traces
+   the same step with ``launch.dryrun.build`` on meta tensors and holds
+   the predicted per-device peak to ``DRY_PEAK_RANGE`` times 9b's (above
+   what the process held before) and the counted matmul FLOPs to
+   ``dense_train_flops`` within ``DRY_FLOP_TOL``, printing the H100
+   roofline's step time beside 9b's (no claim); (9d) runs 3 rounds of
+   int8 error-feedback ``compress_grads`` over the embedding leaf on the
+   card, bit for bit against the CPU, and ``compressed_psum`` over the
+   one-rank group against ``dequantize_int8(*quantize_int8(x))``.  No
+   kernel of the port's own is on this path;
+10. runs the dequant matmul through its entry point at each quantized
    projection shape of that model, at M = 512 (a prefill's rows) and
    M = 4 (a decode step's), on layer 0's weights packed in hobflops9:
    held against its plain version within the float32 summation bound,
@@ -101,10 +116,10 @@ versions:
    for w_f > 10), its bound (two TF32 products, each weight decoded
    once, the bytes) and the f32-FMA bound, the plain version and
    ``torch.matmul`` on the decoded weight;
-10. prints one JSON ``kernels`` line and, last, the ``ok`` line.
+11. prints one JSON ``kernels`` line and, last, the ``ok`` line.
 
 Launch counts are zeroed just before steps 2-3, 3b (its queue, fault
-and burst), 7, 7b, 8 and 9 and read just after each; they count CUDA
+and burst), 7, 7b, 8 and 10 and read just after each; they count CUDA
 kernels (the dequant matmul's tensor-core route launches up to three a
 call, and its row also gives the calls).
 Earlier designs' times are printed from PERF.md, marked so, and are not
@@ -185,6 +200,14 @@ TRAIN_SEQ, TRAIN_MICRO, TRAIN_N_MICRO = 4096, 2, 4
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_KILL_AT = 4, 2, 2
 REMAT_SEQ = 512
 RESUME_TOL, REMAT_TOL = 1e-3, 1e-4
+# Step 9: step 8's configuration on a one-card mesh for DIST_STEPS steps;
+# the dry run's predicted peak must lie in DRY_PEAK_RANGE times the
+# measured one (above what the process held before), its matmul FLOPs
+# within DRY_FLOP_TOL of the analytic count; COMPRESS_ROUNDS rounds of
+# int8 error-feedback compression, bit for bit against the CPU.
+DIST_STEPS = 2
+DRY_PEAK_RANGE, DRY_FLOP_TOL = (0.75, 1.25), 0.01
+COMPRESS_ROUNDS = 3
 # The earlier designs' times on an H100 80GB HBM3 at 700 W, as PERF.md
 # gives them: fused_mac before its warp-specialised redesign and
 # bitslice_mac before its redesign as a grouped interpreter, at batch 1
@@ -799,8 +822,11 @@ def main() -> int:
     lm_families_phase(args.seed, dev)
     print(f"step 7b wall time: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    train_phase(args.seed, dev, card)
+    step8 = train_phase(args.seed, dev, card)
     print(f"step 8 wall time: {time.perf_counter() - t0:.1f} s ({card})")
+    t0 = time.perf_counter()
+    dist_phase(args.seed, dev, card, step8)
+    print(f"step 9 wall time: {time.perf_counter() - t0:.1f} s ({card})")
     rows.append(dequant_phase(args.seed, dev, params, n_sm, clock_mhz))
     print(f"clocks.sm, power.draw, temperature.gpu after the LM phases: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -1395,12 +1421,13 @@ def trace_train_step(step_fn, state, batch) -> dict:
             "top": sorted(kern, reverse=True)[:8]}
 
 
-def train_phase(seed: int, dev, card: str) -> None:
+def train_phase(seed: int, dev, card: str) -> dict:
     """Step 8: qwen2-0.5b trained at full width and depth through
     ``train_loop`` (bf16 compute, float32 parameters and moments),
     crashed after step ``TRAIN_KILL_AT`` and resumed from its
     checkpoint; the remat check; readings.  No kernel of the port's own
-    is on this path (the reference trains with ``jnp`` only)."""
+    is on this path (the reference trains with ``jnp`` only).  Returns
+    the first run's losses and the steady step's ms for step 9."""
     import shutil
     import tempfile
 
@@ -1511,9 +1538,122 @@ def train_phase(seed: int, dev, card: str) -> None:
               f"{worst:.3e} of a leaf's largest gradient (bound "
               f"{REMAT_TOL})")
         del state
+        return {"losses": losses1, "step_ms": step_ms, "tc": tc,
+                "shape": shape, "flops": flops}
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         torch.cuda.empty_cache()
+
+
+def dist_phase(seed: int, dev, card: str, step8: dict) -> None:
+    """Step 9: the distribution layer on a one-card mesh.  9a starts a
+    one-rank NCCL group (``host_mesh``); 9b trains step 8's
+    configuration for ``DIST_STEPS`` steps with ``mesh=`` (state and
+    batches as DTensors, the activation anchors on) and holds each loss
+    to step 8's first run; 9c traces the same step with the dry run's
+    ``build`` on meta tensors and holds its per-device peak to 9b's and
+    its matmul FLOPs to ``dense_train_flops``; 9d holds int8 gradient
+    compression on the card to the CPU, bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compression import (
+        compress_grads, compressed_psum, dequantize_int8,
+        make_error_feedback, quantize_int8)
+    from repro_torch.launch.dryrun import (build, dense_train_flops,
+                                           roofline_terms)
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.launch.train import train_loop
+
+    cfg = get_config(TRAIN_ARCH)
+    shape, tc = step8["shape"], step8["tc"]
+    mesh = host_mesh("cuda")
+    print(f"step 9a: {mesh} over a one-rank {dist.get_backend()} group")
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    stats: dict = {}
+    state, losses = train_loop(cfg, shape, steps=DIST_STEPS, tc=tc,
+                               mesh=mesh, seed=seed, log_every=1,
+                               stats=stats,
+                               print_fn=lambda m: print(f"    {m}"))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    own = peak - base
+    launches = kernel_launches()
+    for i, loss in enumerate(losses):
+        rel = abs(loss - step8["losses"][i]) / abs(step8["losses"][i])
+        require(rel <= RESUME_TOL,
+                f"mesh run step {i} loss {loss} against step 8's "
+                f"{step8['losses'][i]}: {rel:.3e} relative, bound "
+                f"{RESUME_TOL}")
+    mesh_ms = stats["step_ms"][-1]
+    print(f"step 9b mesh-run losses {losses} against step 8's "
+          f"{step8['losses'][:DIST_STEPS]} (each within {RESUME_TOL} "
+          f"relative); steady step ({card}) {mesh_ms:.1f} ms on the mesh "
+          f"against step 8's {step8['step_ms']:.1f} ms (first step "
+          f"{stats['step_ms'][0]:.1f} ms); max_memory_allocated "
+          f"{peak / 1e9:.2f} GB after reset_peak_memory_stats, "
+          f"{own / 1e9:.2f} GB above the {base / 1e9:.2f} GB held "
+          f"before; launches (no kernel of the port's own is on this "
+          f"path): {launches}")
+
+    t0 = time.perf_counter()
+    rec = build(TRAIN_ARCH, shape, "host", {"n_micro": TRAIN_N_MICRO},
+                mesh=mesh)
+    want = dense_train_flops(cfg, shape.global_batch, shape.seq_len)
+    got = rec["cost"]["flops"]
+    pred = rec["memory"]["peak_bytes"]
+    ratio = pred / own
+    roof = roofline_terms(rec["cost"], rec["links"])
+    print(f"step 9c dry run of the same step on meta tensors "
+          f"({time.perf_counter() - t0:.1f} s): predicted peak "
+          f"{pred / 1e9:.2f} GB (arguments "
+          f"{rec['memory']['argument_bytes'] / 1e9:.2f}, rest "
+          f"{rec['memory']['rest_bytes'] / 1e9:.2f}) = {ratio:.3f} x the "
+          f"measured {own / 1e9:.2f} GB (bound {DRY_PEAK_RANGE}); matmul "
+          f"FLOPs {got:.6e} against the analytic {sum(want.values()):.6e} "
+          f"= {want['dense']:.6e} (6 T N_mm) + {want['attention']:.6e} "
+          f"(12 L S^2 H dh B) + {want['remat']:.6e} (remat's recompute); "
+          f"elementwise {rec['cost']['elem_flops']:.4e}, bytes "
+          f"{rec['cost']['bytes']:.4e}, collective bytes "
+          f"{rec['cost']['coll_bytes']:.4e}")
+    print(f"step 9c roofline (H100 SXM5 data sheet, no claim): compute "
+          f"{roof['compute_s'] * 1e3:.1f} ms, memory "
+          f"{roof['memory_s'] * 1e3:.1f} ms, collective "
+          f"{roof['collective_s'] * 1e3:.1f} ms -> {roof['dominant']}, "
+          f"{roof['step_s_max'] * 1e3:.1f} ms a step, against 9b's "
+          f"measured {mesh_ms:.1f} ms ({card})")
+    require(DRY_PEAK_RANGE[0] <= ratio <= DRY_PEAK_RANGE[1],
+            f"dry-run peak {pred} against measured {own}: {ratio:.3f}")
+    require(abs(got - sum(want.values())) <= DRY_FLOP_TOL * sum(
+        want.values()), f"dry-run FLOPs {got} against {want}")
+
+    table = state["params"]["embed"]["table"].full_tensor().detach()
+    del state
+    grads = {"table": table}
+    ef_dev, ef_cpu = make_error_feedback(grads), make_error_feedback(
+        {"table": table.cpu()})
+    for r in range(COMPRESS_ROUNDS):
+        out_dev, ef_dev = compress_grads(grads, ef_dev)
+        out_cpu, ef_cpu = compress_grads({"table": table.cpu()}, ef_cpu)
+        require(same_bits(out_dev["table"].cpu(), out_cpu["table"]) and
+                same_bits(ef_dev["table"].cpu(), ef_cpu["table"]),
+                f"compress_grads round {r}: the card differs from the CPU")
+    psum = compressed_psum(table, mesh.get_group("data"))
+    require(same_bits(psum, dequantize_int8(*quantize_int8(table))),
+            "compressed_psum over one rank != dequantize(quantize(x))")
+    print(f"step 9d int8 error-feedback compression of the "
+          f"{list(table.shape)} embedding leaf, {COMPRESS_ROUNDS} rounds "
+          f"on the card: equal to the CPU's bit for bit; "
+          f"compressed_psum over the one-rank group equals "
+          f"dequantize(quantize(x)) bit for bit")
+    del table, grads, ef_dev, out_dev, psum
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
 
 
 def dequant_phase(seed: int, dev, params: dict, n_sm: int,

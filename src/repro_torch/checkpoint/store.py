@@ -5,9 +5,9 @@ Every leaf is saved as ``.npy`` chunks of raw little-endian bytes
 manifest with shapes, dtype strings, chunk tables and crc32 integrity
 hashes.  Leaf names are the reference's tree paths (dict keys in sorted
 order, joined by ``/``), so a checkpoint written by either package
-restores in the other.  One card holds whole tensors, so the port writes
-one chunk a leaf; its reader assembles a leaf from any overlapping
-chunks, so it also restores what a sharded mesh wrote.
+restores in the other.  The port writes one chunk a leaf, whole (a
+DTensor leaf is gathered first); its reader assembles a leaf from any
+overlapping chunks, so it also restores what a sharded mesh wrote.
 
 bfloat16 has no numpy dtype: its bytes are written through
 ``Tensor.view(torch.uint8)`` under the dtype string ``"bfloat16"`` and
@@ -34,6 +34,7 @@ import zlib
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.schema import _unflatten
 
@@ -145,13 +146,25 @@ def restore_checkpoint(directory, step: int, abstract_state, device=None,
     return _unflatten(abstract_state, out)
 
 
+def _host_copy(t) -> torch.Tensor:
+    """A leaf's whole tensor copied to the host; a DTensor is gathered
+    first (a collective: every rank of its mesh must call it)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().to("cpu", copy=True)
+
+
 @dataclasses.dataclass
 class CheckpointManager:
     """Async checkpointing with a single background writer thread.
     ``last_save`` holds the newest save's seconds (``d2h_s``; ``files_s``
-    once ``wait()`` has joined its writer) and ``bytes``."""
+    once ``wait()`` has joined its writer) and ``bytes``.  A save writes
+    whole tensors (DTensor leaves gathered), so a checkpoint from a mesh
+    restores anywhere; with ``writer=False`` (every rank of a mesh but
+    one) it gathers and writes nothing."""
     directory: str
     keep: int = 3
+    writer: bool = True
     _thread: threading.Thread | None = None
     _error: list = dataclasses.field(default_factory=list)
     last_save: dict = dataclasses.field(default_factory=dict)
@@ -168,9 +181,14 @@ class CheckpointManager:
         # Copy to the host synchronously (a copy even of host tensors)
         # so the step can update `state` in place at once; file IO
         # happens off-thread.
+        if not self.writer:
+            for _, t in _leaf_paths(state):   # the writer's gathers
+                if isinstance(t, DTensor):
+                    t.full_tensor()
+            return
         t0 = time.perf_counter()
         host_state = _unflatten(state, [
-            t.detach().to("cpu", copy=True) for _, t in _leaf_paths(state)])
+            _host_copy(t) for _, t in _leaf_paths(state)])
         timing = {"step": step, "d2h_s": time.perf_counter() - t0,
                   "bytes": sum(t.numel() * t.element_size()
                                for _, t in _leaf_paths(host_state))}

@@ -3,6 +3,9 @@
 ``get_config(name)``   — the exact published configuration.
 ``smoke_config(name)`` — a small model of the same family/topology for
                          CPU tests (same layer period, same block kinds).
+``input_specs(...)``   — meta-device stand-ins for every model input of
+                         a (config, shape, mode) cell; nothing is
+                         allocated (the dry-run contract).
 
 Configs are data only; ``repro_torch.models.transformer`` interprets
 them.
@@ -12,7 +15,9 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.models.config import ModelConfig
+import torch
+
+from repro_torch.models.config import ModelConfig, ShapeConfig
 
 ARCH_IDS = {
     "grok-1-314b": "grok_1_314b",
@@ -26,6 +31,7 @@ ARCH_IDS = {
     "mamba2-2.7b": "mamba2_2_7b",
     "seamless-m4t-medium": "seamless_m4t_medium",
 }
+ARCH_NAMES = list(ARCH_IDS)
 
 
 def get_config(name: str) -> ModelConfig:
@@ -58,3 +64,54 @@ def smoke_config(name: str) -> ModelConfig:
         frontend_dim=48 if cfg.frontend_dim else 0,
     )
 
+
+
+
+# ---------------------------------------------------------------------------
+# Input specs (abstract batches) per (config, shape, mode)
+# ---------------------------------------------------------------------------
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig, *, train: bool):
+    """Token batch as meta tensors (the data-pipeline contract)."""
+    B, S = shape.global_batch, shape.seq_len
+    specs = {"tokens": _meta((B, S), torch.int32)}
+    if train:
+        specs["labels"] = _meta((B, S), torch.int32)
+    if cfg.frontend != "none" and cfg.family != "encdec":
+        specs["prefix"] = _meta((B, cfg.num_prefix, cfg.frontend_dim),
+                                torch.float32)
+    if cfg.family == "encdec":
+        specs["frames"] = _meta((B, S, cfg.frontend_dim), torch.float32)
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig, dtype=torch.bfloat16):
+    """Abstract KV/SSM cache for a decode cell (nothing allocated)."""
+    from repro_torch.models.transformer import init_cache
+    max_len = shape.seq_len + cfg.num_prefix
+    enc_len = shape.seq_len if cfg.family == "encdec" else 0
+    return init_cache(cfg, shape.global_batch, max_len, enc_len=enc_len,
+                      dtype=dtype, device="meta")
+
+
+def decode_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """Inputs of one serve_step: (token, pos, cache)."""
+    return {
+        "token": _meta((shape.global_batch,), torch.int32),
+        "pos": _meta((), torch.int32),
+        "cache": cache_specs(cfg, shape),
+    }
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, mode: str):
+    """mode: train | prefill | decode."""
+    if mode == "train":
+        return {"batch": batch_specs(cfg, shape, train=True)}
+    if mode == "prefill":
+        return {"batch": batch_specs(cfg, shape, train=False)}
+    if mode == "decode":
+        return decode_specs(cfg, shape)
+    raise ValueError(mode)

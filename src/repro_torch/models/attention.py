@@ -9,9 +9,12 @@ pre-allocated KV cache with a length mask plus an explicit self term.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch._build import resolve_device
+from repro_torch.distributed.ctx import constrain, reshape, shard_local
 
 from .config import ModelConfig
 from .layers import apply_rope, rmsnorm, rope_angles, weight_getter
@@ -51,9 +54,11 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, deq=None):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, T, cfg.n_heads, dh)
-    k = k.reshape(B, T, cfg.n_kv_heads, dh)
-    v = v.reshape(B, T, cfg.n_kv_heads, dh)
+    q = reshape(q, (B, T, cfg.n_heads, dh), "batch", None, "qheads", None)
+    k = reshape(k, (B, T, cfg.n_kv_heads, dh),
+                "batch", None, "kvheads", None)
+    v = reshape(v, (B, T, cfg.n_kv_heads, dh),
+                "batch", None, "kvheads", None)
     if cfg.qk_norm:
         q = rmsnorm({"scale": p["q_norm"]}, q, cfg.norm_eps)
         k = rmsnorm({"scale": p["k_norm"]}, k, cfg.norm_eps)
@@ -68,13 +73,28 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, deq=None):
 def _softmax_attend(q, k, v, *, causal: bool):
     """q [B,S,Hq,D], k/v [B,S,Hkv,D] -> [B,S,Hq,D], float32 scores.
 
+    Query groups are laid out as the reference's blockwise attention
+    anchors them (kv-heads, or when too few the groups within one, over
+    model); each rank then attends its own rows and heads alone."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    q5 = ("batch", None, "kvheads", "qgroups", None)
+    kv = ("batch", None, "kvheads", None)
+    o = shard_local(functools.partial(_attend, causal=causal),
+                    (reshape(q, (B, Sq, Hkv, Hq // Hkv, D), *q5), k, v),
+                    (q5, kv, kv))
+    return reshape(o, (B, Sq, Hq, D), "batch", None, "qheads",
+                   None).to(q.dtype)
+
+
+def _attend(q, k, v, *, causal: bool):
+    """q [B,S,Hkv,G,D], k/v [B,S,Hkv,D] -> [B,S,Hkv,G,D] float32.
+
     The row max only shifts the exponent, and the softmax does not
     depend on it, so it is taken without a gradient path: its backward
     would be a mask of the full score tensor whose terms sum to zero."""
-    B, Sq, Hq, D = q.shape
-    _, Sk, Hkv, _ = k.shape
-    G = Hq // Hkv
-    qf = q.reshape(B, Sq, Hkv, G, D).to(torch.float32) * D ** -0.5
+    Sq, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
+    qf = q.to(torch.float32) * D ** -0.5
     kf, vf = k.to(torch.float32), v.to(torch.float32)
     s = torch.einsum("btkgd,bukd->btkgu", qf, kf)
     if causal:
@@ -86,8 +106,7 @@ def _softmax_attend(q, k, v, *, causal: bool):
     pw = torch.exp(s - m[..., None])
     denom = torch.sum(pw, dim=-1)
     o = torch.einsum("btkgu,bukd->btkgd", pw, vf)
-    o = o / torch.clamp(denom, min=1e-30)[..., None]
-    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+    return o / torch.clamp(denom, min=1e-30)[..., None]
 
 
 def attention(p, x, cfg: ModelConfig, *, causal: bool = True, deq=None):
@@ -96,7 +115,9 @@ def attention(p, x, cfg: ModelConfig, *, causal: bool = True, deq=None):
     positions = torch.arange(T, device=x.device).expand(B, T)
     q, k, v = _project_qkv(p, x, cfg, positions, deq)
     o = _softmax_attend(q, k, v, causal=causal)
-    out = o.reshape(B, T, -1) @ weight_getter(p, deq)("wo").to(x.dtype)
+    o = reshape(o, (B, T, cfg.n_heads * cfg.head_dim), "batch", None,
+                "qheads")
+    out = o @ weight_getter(p, deq)("wo").to(x.dtype)
     return out, (k, v)
 
 
@@ -127,14 +148,20 @@ def decode_attention(p, x, cfg: ModelConfig, layer_cache, pos: int,
 
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = Hq // Hkv
-    qf = q.reshape(B, Hkv, G, D).to(torch.float32) * D ** -0.5
+    # On a mesh the cache is split over its sequence, so the token's
+    # heads stay whole and the scores keep the cache's sequence
+    # sharding.  (The reference anchors the scores with kv-heads first;
+    # DTensor cannot then take the views that the next einsum makes.)
+    qf = reshape(q, (B, Hkv, G, D), "batch", None, None,
+                 None).to(torch.float32) * D ** -0.5
     k, v = layer_cache["k"], layer_cache["v"]
     valid = torch.arange(k.shape[1], device=x.device) < pos   # old tokens
     kf, vf = k.to(torch.float32), v.to(torch.float32)
-    s = torch.einsum("bkgd,bskd->bkgs", qf, kf)
+    s = constrain(torch.einsum("bkgd,bskd->bkgs", qf, kf),
+                  "batch", None, None, "kvseq")
     s = torch.where(valid[None, None, None, :], s, NEG_INF)
-    s_self = torch.einsum("bkgd,bukd->bkgu", qf,
-                          k_new.to(torch.float32))           # [B,Hkv,G,1]
+    s_self = torch.einsum("bkgd,bukd->bkgu", qf, constrain(
+        k_new.to(torch.float32), "batch", None, None, None))  # [B,Hkv,G,1]
     m = torch.maximum(torch.amax(s, dim=-1, keepdim=True), s_self)
     pw = torch.exp(s - m)
     p_self = torch.exp(s_self - m)                           # [B,Hkv,G,1]
@@ -142,6 +169,6 @@ def decode_attention(p, x, cfg: ModelConfig, layer_cache, pos: int,
     o = (torch.einsum("bkgs,bskd->bkgd", pw, vf)
          + p_self * v_new.to(torch.float32)[:, 0][:, :, None])
     o = o / denom
-    o = o.reshape(B, 1, Hq * D)
+    o = reshape(o, (B, 1, Hq * D), "batch", None, "qheads")
     out = o.to(x.dtype) @ weight_getter(p, deq)("wo").to(x.dtype)
     return out, {"k_new": k_new, "v_new": v_new}

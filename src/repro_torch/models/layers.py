@@ -10,6 +10,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.ctx import constrain, grad_as_param, shard_local
 
 from .config import ModelConfig
 from .schema import P
@@ -45,7 +48,11 @@ def embed_schema(cfg: ModelConfig):
 
 
 def embed(p, tokens, cfg: ModelConfig):
-    return p["table"][tokens].to(dtype_of(cfg.compute_dtype))
+    """``F.embedding``, not indexing: DTensor shards an embedding lookup
+    over a vocab-split table (masked partial rows) and has no rule for
+    indexing one."""
+    return F.embedding(tokens, grad_as_param(p["table"])).to(
+        dtype_of(cfg.compute_dtype))
 
 
 def logits_schema(cfg: ModelConfig):
@@ -60,10 +67,11 @@ def logits(p, x, cfg: ModelConfig, embed_params=None, deq=None):
     values is exact in float32, so both operands go to float32 and the
     product accumulates in float32."""
     if cfg.tie_embeddings:
-        w = embed_params["table"].T
+        w = grad_as_param(embed_params["table"]).T
     else:
         w = deq("w", p["w"]) if deq is not None else p["w"]
-    return x.to(torch.float32) @ w.to(x.dtype).to(torch.float32)
+    lg = x.to(torch.float32) @ w.to(x.dtype).to(torch.float32)
+    return constrain(lg, "batch", None, "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +123,7 @@ def mlp(p, x, cfg: ModelConfig, deq=None):
     the quantized serving path."""
     get = weight_getter(p, deq)
     h = _act(cfg.mlp_act)(x @ get("w_gate").to(x.dtype))
+    h = constrain(h, "batch", None, "mlp")   # Megatron column-parallel
     h = h * (x @ get("w_up").to(x.dtype))
     return h @ get("w_down").to(x.dtype)
 
@@ -130,9 +139,32 @@ def softmax_xent(lg, labels):
     a one-hot instead, so that GSPMD partitions the pick over a
     vocab-sharded axis; on one card that form would be a second
     ``[B, S, V]`` float32 tensor (5.0 GB a micro-batch of 2 x 4096 at
-    qwen2-0.5b's vocab), and the value is the same."""
+    qwen2-0.5b's vocab), and the value is the same.  DTensor logits (a
+    mesh run) take :func:`_split_vocab_xent`."""
     lg = lg.to(torch.float32)
-    lse = torch.logsumexp(lg, dim=-1)
-    picked = torch.gather(lg, -1, labels.to(torch.int64)[..., None])[..., 0]
-    return torch.mean(lse - picked)
+    labels = labels.to(torch.int64)
+    if isinstance(lg, DTensor):
+        return torch.mean(_split_vocab_xent(lg, labels))
+    lse = torch.logsumexp(lg, dim=-1, keepdim=True)
+    return torch.mean(lse - torch.gather(lg, -1, labels[..., None]))
 
+
+def _split_vocab_xent(lg, labels):
+    """Each token's loss [B,S,1] with the vocabulary left split: the
+    logsumexp from the row max and the sum of exponentials (partial
+    reductions of [B,S,1]), the label's logit by the reference's one-hot
+    pick on each rank's slice of the vocabulary.  Gathering the logits
+    whole instead costs a [B,S,V] float32 tensor a rank, several times
+    over in the backward pass."""
+    m = torch.amax(lg, dim=-1, keepdim=True).detach()
+    lse = m + torch.log(torch.sum(torch.exp(lg - m), dim=-1, keepdim=True))
+    vocab = torch.arange(lg.shape[-1], device=lg.device)
+    picked = shard_local(_pick, (lg, labels, vocab),
+                         (("batch", None, "vocab"), ("batch", None),
+                          ("vocab",)), partial_of=(2, 0))
+    return lse - picked
+
+
+def _pick(lg, labels, vocab):
+    """sum(lg * one_hot(labels)) over the (local) vocabulary ``vocab``."""
+    return torch.sum(lg * (labels[..., None] == vocab), dim=-1, keepdim=True)

@@ -12,10 +12,13 @@ state N = cfg.ssm_state, a single B/C group.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch._build import resolve_device
+from repro_torch.distributed.ctx import constrain, shard_local
 
 from .config import ModelConfig
 from .layers import rmsnorm, weight_getter
@@ -69,8 +72,11 @@ def ssd_chunked(xdt, dA, Bm, Cm, chunk: int, h0=None):
                            F.pad(Cm, (0, 0, 0, pad)), chunk, h0)
         return y[:, :S], h
     nc = S // Q
-    xc = xdt.reshape(B, nc, Q, H, Pd)
-    dAc = dA.reshape(B, nc, Q, H)
+    # Heads over "model" inside SSD (the chunk axis stays local: the
+    # inter-chunk recurrence is sequential).
+    xc = constrain(xdt.reshape(B, nc, Q, H, Pd),
+                   "batch", None, None, "ssm", None)
+    dAc = constrain(dA.reshape(B, nc, Q, H), "batch", None, None, "ssm")
     Bc = Bm.reshape(B, nc, Q, N)
     Cc = Cm.reshape(B, nc, Q, N)
 
@@ -138,77 +144,110 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
     return z, xBC, dt
 
 
-def _ssd_inputs(cfg: ModelConfig, p, xBC, dt):
+def _ssd_inputs(cfg: ModelConfig, dt_bias, A_log, xBC, dt):
     """Post-conv xBC + raw dt -> f32 (x [.., H, P], dA, Bm, Cm, dt_sp)."""
     di, N, H, Pd = (cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads,
                     cfg.ssm_headdim)
     x = xBC[..., :di].to(torch.float32)
     Bm = xBC[..., di:di + N].to(torch.float32)
     Cm = xBC[..., di + N:].to(torch.float32)
-    dt_sp = F.softplus(dt.to(torch.float32)
-                       + p["dt_bias"].to(torch.float32))
-    A = -torch.exp(p["A_log"].to(torch.float32))       # [H]
+    dt_sp = F.softplus(dt.to(torch.float32) + dt_bias.to(torch.float32))
+    A = -torch.exp(A_log.to(torch.float32))            # [H]
     dA = dt_sp * A                                     # [..., H]
     x = x.reshape(*x.shape[:-1], H, Pd)
     return x, dA, Bm, Cm, dt_sp
 
 
+# The small parameters of the mixer body, in :func:`_mix`'s order.
+_BODY = ("conv_w", "conv_b", "dt_bias", "A_log", "D", "norm")
+_BODY_AXES = ((None, None),) + ((None,),) * 5
+
+
 def mamba(p, x, cfg: ModelConfig, deq=None, h0=None):
     """Full-sequence mixer.  x [B,S,d] -> (y [B,S,d], final state
-    {"conv": the last K-1 pre-activation xBC rows, "ssd"})."""
+    {"conv": the last K-1 pre-activation xBC rows, "ssd"}).
+
+    Between the two projections every step works on one batch row, so
+    on a mesh the body runs on each rank's rows (``shard_local``), the
+    SSD inner features whole: the conv's padding and the SSD scan's
+    chunk views have no DTensor rule that keeps them split."""
     get = weight_getter(p, deq)
-    B, S, d = x.shape
-    zxbcdt = x @ get("in_proj").to(x.dtype)
+    zxbcdt = constrain(x @ get("in_proj").to(x.dtype),
+                       "batch", None, "ssm")
+    extra = () if h0 is None else (h0["ssd"],)
+    y, conv_state, h_final = shard_local(
+        functools.partial(_mix, cfg=cfg, dtype=x.dtype),
+        (zxbcdt,) + tuple(p[n] for n in _BODY) + extra,
+        (("batch", None, None),) + _BODY_AXES
+        + (("batch", None, None, None),) * len(extra), out_like=(0, 0, 0))
+    return y @ get("out_proj").to(x.dtype), {"conv": conv_state,
+                                             "ssd": h_final}
+
+
+def _mix(zxbcdt, conv_w, conv_b, dt_bias, A_log, D, norm, ssd0=None, *,
+         cfg: ModelConfig, dtype):
+    """The mixer between its projections: (gated, normed y [B,S,di],
+    conv state, final SSD state)."""
+    B, S, _ = zxbcdt.shape
     z, xBC_pre, dt = _split_proj(cfg, zxbcdt)
-    xBC = F.silu(_causal_conv(xBC_pre, p["conv_w"].to(x.dtype),
-                              p["conv_b"].to(x.dtype)))
-    xs, dA, Bm, Cm, dt_sp = _ssd_inputs(cfg, p, xBC, dt)
-    ssd0 = None if h0 is None else h0["ssd"]
+    xBC = F.silu(_causal_conv(xBC_pre, conv_w.to(dtype), conv_b.to(dtype)))
+    xs, dA, Bm, Cm, dt_sp = _ssd_inputs(cfg, dt_bias, A_log, xBC, dt)
     y, h_final = ssd_chunked(xs * dt_sp[..., None], dA, Bm, Cm,
                              cfg.ssm_chunk, ssd0)
-    y = y + p["D"].to(torch.float32)[None, None, :, None] * xs
-    y = y.reshape(B, S, cfg.ssm_inner).to(x.dtype)
+    y = y + D.to(torch.float32)[None, None, :, None] * xs
+    y = y.reshape(B, S, cfg.ssm_inner).to(dtype)
     y = y * F.silu(z)
-    y = rmsnorm({"scale": p["norm"]}, y, cfg.norm_eps)
-    out = y @ get("out_proj").to(x.dtype)
+    y = rmsnorm({"scale": norm}, y, cfg.norm_eps)
     # The decode conv window needs the last K-1 PRE-activation xBC rows,
     # left-padded with zeros when the prompt is shorter.
     K = cfg.ssm_conv
     conv_state = (xBC_pre[:, S - (K - 1):, :] if S >= K - 1 else
                   F.pad(xBC_pre, (0, 0, K - 1 - S, 0)))
-    return out, {"conv": conv_state, "ssd": h_final}
+    return y, conv_state, h_final
 
 
 def mamba_decode(p, x, cfg: ModelConfig, state, deq=None):
     """One-token recurrent step.  x [B,1,d] -> (y [B,1,d], new_state).
 
     The window ``[conv state | new row]`` takes the wider of the state's
-    and the activations' dtypes, as the reference's promotion does."""
+    and the activations' dtypes, as the reference's promotion does.  On
+    a mesh the step runs on each rank's rows, as :func:`mamba`'s body."""
     get = weight_getter(p, deq)
-    B = x.shape[0]
-    di = cfg.ssm_inner
     zxbcdt = x[:, 0, :] @ get("in_proj").to(x.dtype)       # [B, d_in]
-    z, xBC_new, dt = _split_proj(cfg, zxbcdt)
+    y, conv, h = shard_local(
+        functools.partial(_step, cfg=cfg, dtype=x.dtype),
+        (zxbcdt, state["conv"], state["ssd"])
+        + tuple(p[n] for n in _BODY),
+        (("batch", None), ("batch", None, None),
+         ("batch", None, None, None)) + _BODY_AXES, out_like=(0, 1, 2))
+    return (y @ get("out_proj").to(x.dtype))[:, None, :], {"conv": conv,
+                                                          "ssd": h}
 
-    wdt = torch.promote_types(state["conv"].dtype, x.dtype)
-    window = torch.cat([state["conv"].to(wdt),
-                        xBC_new[:, None, :].to(wdt)], dim=1)
-    w = p["conv_w"].to(x.dtype).to(wdt)                    # [K, D]
+
+def _step(zxbcdt, conv, ssd, conv_w, conv_b, dt_bias, A_log, D, norm, *,
+          cfg: ModelConfig, dtype):
+    """The recurrent step between the projections: (y [B,di], the new
+    conv window, the new SSD state)."""
+    B = zxbcdt.shape[0]
+    z, xBC_new, dt = _split_proj(cfg, zxbcdt)
+    wdt = torch.promote_types(conv.dtype, dtype)
+    window = torch.cat([conv.to(wdt), xBC_new[:, None, :].to(wdt)], dim=1)
+    w = conv_w.to(dtype).to(wdt)                           # [K, D]
     xBC = (torch.einsum("bkd,kd->bd", window, w)
-           + p["conv_b"].to(x.dtype).to(wdt))
+           + conv_b.to(dtype).to(wdt))
     xBC = F.silu(xBC)
 
-    xs, dA, Bm, Cm, dt_sp = _ssd_inputs(cfg, p, xBC, dt)   # x [B,H,P]
+    xs, dA, Bm, Cm, dt_sp = _ssd_inputs(cfg, dt_bias, A_log, xBC,
+                                        dt)                # x [B,H,P]
     dec = torch.exp(dA)                                    # [B,H]
     inj = torch.einsum("bhp,bn->bhpn", xs * dt_sp[..., None], Bm)
-    h = state["ssd"] * dec[:, :, None, None] + inj
+    h = ssd * dec[:, :, None, None] + inj
     y = torch.einsum("bn,bhpn->bhp", Cm, h)
-    y = y + p["D"].to(torch.float32)[None, :, None] * xs
-    y = y.reshape(B, di).to(x.dtype)
+    y = y + D.to(torch.float32)[None, :, None] * xs
+    y = y.reshape(B, cfg.ssm_inner).to(dtype)
     y = y * F.silu(z)
-    y = rmsnorm({"scale": p["norm"]}, y, cfg.norm_eps)
-    out = (y @ get("out_proj").to(x.dtype))[:, None, :]
-    return out, {"conv": window[:, 1:, :], "ssd": h}
+    y = rmsnorm({"scale": norm}, y, cfg.norm_eps)
+    return y, window[:, 1:, :], h
 
 
 def ssd_reference(xdt, dA, Bm, Cm, h0=None):

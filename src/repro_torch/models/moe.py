@@ -15,8 +15,12 @@ float32 whatever the compute dtype.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.ctx import batch_local, constrain, shard_local
 
 from .config import ModelConfig
 from .layers import _act, weight_getter
@@ -44,7 +48,11 @@ def route(router, x, k: int):
     """x [..., d] -> (probs [..., E], gate [..., k], expert [..., k]),
     all in float32; gates renormalised over the chosen k.  Equal
     probabilities go to the lower expert index first."""
-    logits = x.to(torch.float32) @ router.to(torch.float32)
+    return _choose(x.to(torch.float32) @ router.to(torch.float32), k)
+
+
+def _choose(logits, k: int):
+    """Router logits -> (probs, gate, expert) as :func:`route`."""
     probs = torch.softmax(logits, dim=-1)
     gate, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, expert = gate[..., :k], expert[..., :k]
@@ -56,28 +64,37 @@ def _experts(p, xs, cfg: ModelConfig, get, sub: str, hidden: str):
     """Every expert's gated FFN over ``xs``: ``sub`` names its layout
     ("becd": each expert's slots; "td": all tokens) and ``hidden`` the
     hidden activations' ("becf"; "etf"), whose layout, with ``d`` for
-    ``f``, the output takes."""
-    act = _act(cfg.mlp_act)
+    ``f``, the output takes.  On a mesh each rank runs its own rows and
+    experts (or, with too few experts to split, its slice of the hidden
+    width, the output then a partial sum)."""
     wg, wu, wd = (get(n).to(xs.dtype) for n in ("w_gate", "w_up",
                                                    "w_down"))
+    w_in = ("experts", None, "emlp")
+    return shard_local(
+        functools.partial(_ffn, act=_act(cfg.mlp_act), sub=sub,
+                          hidden=hidden),
+        (xs, wg, wu, wd),
+        (("batch", "experts", None, None), w_in, w_in,
+         ("experts", "emlp", None)), partial_of=(3, 1))
+
+
+def _ffn(xs, wg, wu, wd, *, act, sub: str, hidden: str):
     h = act(torch.einsum(f"{sub},edf->{hidden}", xs, wg))
     h = h * torch.einsum(f"{sub},edf->{hidden}", xs, wu)
     return torch.einsum(f"{hidden},efd->{hidden.replace('f', 'd')}", h, wd)
 
 
-def moe(p, x, cfg: ModelConfig, deq=None):
-    """x [B, S, d] -> (y [B, S, d], aux: the Switch load-balance loss, a
-    0-d float32 tensor)."""
-    get = weight_getter(p, deq)
-    B, S, d = x.shape
-    E, k = cfg.moe_experts, cfg.moe_top_k
-    C = _capacity(cfg, S)                                   # per group
-    A = S * k                                               # assignments
+def _dispatch(x, expert, gate, *, E: int, C: int):
+    """Per batch row: sort the assignments by expert (stable), rank them
+    within their expert, drop those past capacity ``C`` and gather the
+    kept tokens into ``[B, E, C, d]``.  Returns (dispatch buffer, each
+    assignment's slot ``[B, A]``, its combine weight ``[B, A]``, zero
+    where dropped)."""
+    B, S, k = expert.shape
+    d = x.shape[-1]
+    A = S * k
     dev = x.device
-
-    probs, gate, expert = route(p["router"], x, k)          # [B,S,k]
     flat_e = expert.reshape(B, A)
-    flat_g = gate.reshape(B, A)
     ar = torch.arange(A, device=dev)
     order = torch.argsort(flat_e, dim=-1, stable=True)      # [B,A]
     st = (ar // k)[order]                                   # token per pos
@@ -96,22 +113,55 @@ def moe(p, x, cfg: ModelConfig, deq=None):
     tok_for_slot = torch.gather(st, -1, src_pos)            # [B,E*C]
     disp = torch.gather(x, 1, tok_for_slot[..., None].expand(B, E * C, d))
     disp = disp * slot_valid.reshape(B, E * C, 1).to(x.dtype)
-    out_e = _experts(p, disp.reshape(B, E, C, d), cfg, get, "becd",
-                     "becf")
 
-    # ---- combine by gather: slot of each assignment ------------------------
+    # ---- combine plan: slot of each assignment -----------------------------
     rank_sorted = ar[None, :] - torch.gather(
         offsets, -1, torch.gather(flat_e, -1, order))       # [B,A]
     rank_j = torch.gather(rank_sorted, -1, iperm)
     keep_j = rank_j < C
     slot_j = flat_e * C + torch.where(keep_j, rank_j, 0)    # [B,A]
+    w_assign = (gate.reshape(B, A) * keep_j).to(x.dtype)
+    return disp.reshape(B, E, C, d), slot_j, w_assign
+
+
+def _combine(out_e, slot_j, w_assign, *, k: int):
+    """Per batch row: gather each assignment's expert output from its
+    slot and sum a token's ``k`` weighted outputs -> ``[B, S, d]``."""
+    B, E, C, d = out_e.shape
+    A = slot_j.shape[1]
     contrib = torch.gather(out_e.reshape(B, E * C, d), 1,
                            slot_j[..., None].expand(B, A, d))
-    w_assign = (flat_g * keep_j).to(x.dtype)
-    y = torch.sum((contrib * w_assign[..., None]).reshape(B, S, k, d), dim=2)
+    return torch.sum((contrib * w_assign[..., None]).reshape(
+        B, A // k, k, d), dim=2)
+
+
+def moe(p, x, cfg: ModelConfig, deq=None):
+    """x [B, S, d] -> (y [B, S, d], aux: the Switch load-balance loss, a
+    0-d float32 tensor).  Dispatch and combine move tokens within a
+    batch row only, so on a mesh they run on each rank's rows
+    (``batch_local``)."""
+    get = weight_getter(p, deq)
+    B, S, d = x.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    C = _capacity(cfg, S)                                   # per group
+
+    logits = x.to(torch.float32) @ p["router"].to(torch.float32)
+    probs, gate, expert = batch_local(functools.partial(_choose, k=k),
+                                      logits, n_out=3)      # [B,S,k]
+    disp, slot_j, w_assign = batch_local(
+        functools.partial(_dispatch, E=E, C=C), x, expert, gate, n_out=3)
+    # batch over data, experts over model (EP): expert matmuls are
+    # fully local per (data, model) shard.
+    disp = constrain(disp, "batch", "experts", None, None)
+    out_e = constrain(_experts(p, disp, cfg, get, "becd", "becf"),
+                      "batch", "experts", None, None)
+    y = batch_local(functools.partial(_combine, k=k), out_e, slot_j,
+                    w_assign)
+    y = constrain(y, "batch", None, None)
 
     # Switch-style load-balance aux loss.
-    frac_tokens = F.one_hot(expert[..., 0], E).to(torch.float32).mean((0, 1))
+    top1 = expert[..., 0, None] == torch.arange(E, device=x.device)
+    frac_tokens = top1.to(torch.float32).mean((0, 1))
     mean_prob = probs.mean((0, 1))
     aux = E * torch.sum(frac_tokens * mean_prob)
     return y, aux

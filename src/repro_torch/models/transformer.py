@@ -21,6 +21,8 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.ctx import (constrain, get_act_rules, reshape,
+                                         write_rows)
 from repro_torch.quant.storage import QuantizedTensor
 
 from .attention import (_softmax_attend, attention, attn_schema,
@@ -100,17 +102,21 @@ def cross_kv(p, memory, cfg: ModelConfig, deq=None):
     k = memory @ get("wk").to(memory.dtype)
     v = memory @ get("wv").to(memory.dtype)
     dh = cfg.head_dim
-    return (k.reshape(B, -1, cfg.n_kv_heads, dh),
-            v.reshape(B, -1, cfg.n_kv_heads, dh))
+    shape = (B, memory.shape[1], cfg.n_kv_heads, dh)
+    return (reshape(k, shape, "batch", None, "kvheads", None),
+            reshape(v, shape, "batch", None, "kvheads", None))
 
 
 def cross_attention(p, x, kv, cfg: ModelConfig, deq=None):
     """x [B,T,d] queries over precomputed memory (k, v)."""
     get = weight_getter(p, deq)
     B, T, _ = x.shape
-    q = (x @ get("wq").to(x.dtype)).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    q = reshape(x @ get("wq").to(x.dtype), (B, T, cfg.n_heads, cfg.head_dim),
+                "batch", None, "qheads", None)
     o = _softmax_attend(q, *kv, causal=False)
-    return o.reshape(B, T, -1) @ get("wo").to(x.dtype)
+    o = reshape(o, (B, T, cfg.n_heads * cfg.head_dim), "batch", None,
+                "qheads")
+    return o @ get("wo").to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +138,11 @@ def apply_block(bp, x, cfg: ModelConfig, kind, *, mode: str, cache=None,
     is_attn, is_moe = kind
     aux = 0.0
     cache_out = {}
-    h = rmsnorm(bp["pre_norm"], x, cfg.norm_eps)
+    # Each mixer and FFN input leaves the sequence-parallel layout (the
+    # Megatron all-gather): a DTensor view cannot merge a sharded
+    # sequence dim into the rows of a matmul.
+    h = constrain(rmsnorm(bp["pre_norm"], x, cfg.norm_eps),
+                  "batch", None, None)
     if is_attn:
         if mode == "decode":
             a, new_kv = decode_attention(bp["attn"], h, cfg, cache, pos,
@@ -147,22 +157,27 @@ def apply_block(bp, x, cfg: ModelConfig, kind, *, mode: str, cache=None,
                                      "ssd": cache["ssd"]}, deq=deq)
     else:
         a, cache_out = mamba(bp["mamba"], h, cfg, deq=deq)
-    x = x + a
+    # ... and each output re-enters it before the residual add (the
+    # Megatron reduce-scatter), so that its gradient leaves it again.
+    x = x + constrain(a, "batch", "act_seq", None)
     if "cross" in bp:
-        hc = rmsnorm(bp["cross_norm"], x, cfg.norm_eps)
+        hc = constrain(rmsnorm(bp["cross_norm"], x, cfg.norm_eps),
+                       "batch", None, None)
         if mode == "decode":
             kv = (cache["ck"], cache["cv"])   # read-only at decode
         else:
             kv = cross_kv(bp["cross"], memory, cfg, deq=deq)
             cache_out.update({"ck": kv[0], "cv": kv[1]})
-        x = x + cross_attention(bp["cross"], hc, kv, cfg, deq=deq)
+        x = x + constrain(cross_attention(bp["cross"], hc, kv, cfg, deq=deq),
+                          "batch", "act_seq", None)
     if cfg.d_ff > 0:
-        h = rmsnorm(bp["mlp_norm"], x, cfg.norm_eps)
+        h = constrain(rmsnorm(bp["mlp_norm"], x, cfg.norm_eps),
+                      "batch", None, None)
         if is_moe:
             y, aux = moe(bp["moe"], h, cfg, deq=deq)
         else:
             y = mlp(bp["mlp"], h, cfg, deq=deq)
-        x = x + y
+        x = x + constrain(y, "batch", "act_seq", None)
     return x, aux, cache_out
 
 
@@ -189,6 +204,9 @@ def apply_stack(blocks, x, cfg: ModelConfig, *, mode: str, caches=None,
                     {key: unstack(caches[key], depth) for key in keys})
 
     def body(i, x, aux):
+        # Residual anchor: batch over data, seq over model (Megatron
+        # sequence parallelism) when the rules context enables it.
+        x = constrain(x, "batch", "act_seq", None)
         outs = {}
         for key, kind in zip(keys, kinds):
             c = None if cache_layers is None else cache_layers[key][i]
@@ -225,9 +243,13 @@ def _embed_input(params, batch, cfg: ModelConfig):
     if cfg.frontend != "none" and cfg.family != "encdec":
         prefix = batch["prefix"].to(x.dtype)
         proj = params["frontend"]["proj"].to(x.dtype)
-        x = torch.cat([prefix @ proj, x], dim=1)
+        # On a mesh both halves are reduced to one layout first (DTensor
+        # cannot join the lookup's masked partial rows with a product's
+        # partial sums).
+        x = torch.cat([constrain(prefix @ proj, "batch", None, None),
+                       constrain(x, "batch", None, None)], dim=1)
         n_prefix = prefix.shape[1]
-    return x, n_prefix
+    return constrain(x, "batch", "act_seq", None), n_prefix
 
 
 def encode_memory(params, batch, cfg: ModelConfig, remat: bool = False):
@@ -239,7 +261,8 @@ def encode_memory(params, batch, cfg: ModelConfig, remat: bool = False):
     x, _, _ = apply_stack({"b0": params["enc_blocks"]["e0"]}, x, cfg,
                           mode="train" if remat else "prefill",
                           causal=False, kinds=[(True, False)], remat=remat)
-    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+    return constrain(rmsnorm(params["enc_norm"], x, cfg.norm_eps),
+                     "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +279,8 @@ def forward_logits(params, batch, cfg: ModelConfig, *, mode: str = "train",
               if cfg.family == "encdec" else None)
     x, aux, _ = apply_stack(params["blocks"], x, cfg, mode=mode,
                             memory=memory, deq=deq, remat=remat)
-    x = rmsnorm(params["final_norm"], x[:, n_prefix:, :], cfg.norm_eps)
+    x = constrain(rmsnorm(params["final_norm"], x[:, n_prefix:, :],
+                          cfg.norm_eps), "batch", None, None)
     lg = logits(params.get("logits", {}), x, cfg,
                 embed_params=params["embed"], deq=deq)
     return lg, aux
@@ -279,11 +303,15 @@ def lm_loss(params, batch, cfg: ModelConfig, aux_weight: float = 0.01,
 # Serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
-               dtype=torch.bfloat16, device="cuda") -> Tree:
+               dtype=torch.bfloat16, device="cuda", mesh=None) -> Tree:
     """Per block position: ``k``/``v`` [depth, B, max_len, Hkv, D] for
     attention, ``conv`` [depth, B, K-1, conv_dim] and ``ssd`` (float32
     whatever ``dtype``) for Mamba, ``ck``/``cv`` [depth, B, enc_len, Hkv,
-    D] for enc-dec."""
+    D] for enc-dec.  With a ``mesh`` every leaf is a DTensor of zeros laid
+    out by ``cache_pspecs`` under the installed activation rules, each
+    rank allocating only its shard."""
+    if mesh is not None:
+        return _mesh_cache(cfg, batch, max_len, enc_len, dtype, device, mesh)
     period = cfg.scan_period()
     depth = cfg.n_layers // period
     kinds = cfg.layer_kinds()[:period]
@@ -304,6 +332,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
     return {f"b{k}": one(kinds[k]) for k in range(period)}
 
 
+def _mesh_cache(cfg, batch, max_len, enc_len, dtype, device, mesh) -> Tree:
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    from repro_torch.distributed.sharding import cache_pspecs, placements
+    rules = get_act_rules()
+    if rules is None:
+        raise ValueError("a cache on a mesh needs activation rules "
+                         "(distributed.ctx.act_rules)")
+    shapes = init_cache(cfg, batch, max_len, enc_len, dtype, device="meta")
+    specs = cache_pspecs(shapes, rules)
+
+    def leaf(t, spec):
+        pl = placements(mesh, spec)
+        local, _ = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+        return DTensor.from_local(
+            torch.zeros(local, dtype=t.dtype, device=device), mesh, pl,
+            run_check=False, shape=t.shape, stride=t.stride())
+
+    return {key: {n: leaf(t, specs[key][n]) for n, t in c.items()}
+            for key, c in shapes.items()}
+
+
 def prefill(params, batch, cfg: ModelConfig, max_len: int,
             dtype=torch.bfloat16, deq=None):
     """Process the prompt; build a max_len cache.  Returns
@@ -314,16 +366,20 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int,
     S = x.shape[1]
     x, _, fresh = apply_stack(params["blocks"], x, cfg, mode="prefill",
                               memory=memory, deq=deq)
-    xl = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+    xl = constrain(rmsnorm(params["final_norm"], x[:, -1:, :],
+                           cfg.norm_eps), "batch", None, None)
     lg = logits(params.get("logits", {}), xl, cfg,
                 embed_params=params["embed"], deq=deq)[:, 0, :]
     cache = init_cache(cfg, x.shape[0], max_len,
                        enc_len=0 if memory is None else memory.shape[1],
-                       dtype=dtype, device=x.device)
+                       dtype=dtype, device=x.device,
+                       mesh=getattr(x, "device_mesh", None))
     for key, c in cache.items():
         for name, dst in c.items():
-            (dst[:, :, :S] if name in ("k", "v") else dst).copy_(
-                fresh[key][name])
+            if name in ("k", "v"):
+                write_rows(dst, fresh[key][name], 0, 2)
+            else:
+                dst.copy_(fresh[key][name])
     return cache, lg, S
 
 
@@ -343,8 +399,8 @@ def decode_step(params, token, cache, pos: int, cfg: ModelConfig,
     for key, c in cache.items():
         o = outs[key]
         if "k_new" in o:
-            c["k"][:, :, pos:pos + 1] = o["k_new"].to(c["k"].dtype)
-            c["v"][:, :, pos:pos + 1] = o["v_new"].to(c["v"].dtype)
+            write_rows(c["k"], o["k_new"].to(c["k"].dtype), pos, 2)
+            write_rows(c["v"], o["v_new"].to(c["v"].dtype), pos, 2)
         if "conv" in o:
             c["conv"].copy_(o["conv"])
             c["ssd"].copy_(o["ssd"])

@@ -15,8 +15,10 @@ limited"):
 """
 from .storage import (LANE, QuantizedTensor, dequantize, quantize,
                       storage_bytes)
-from .apply import make_deq, quantize_params, quantized_bytes
+from .apply import (abstract_quantize_params, make_deq, quantize_params,
+                    quantized_bytes, quantized_pspecs)
 
 __all__ = ["LANE", "QuantizedTensor", "quantize", "dequantize",
            "storage_bytes", "quantize_params", "make_deq",
-           "quantized_bytes"]
+           "quantized_bytes", "abstract_quantize_params",
+           "quantized_pspecs"]

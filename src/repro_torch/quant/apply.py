@@ -41,6 +41,64 @@ def quantize_leaf(w, sfmt: StorageFormat, stacked: bool) -> QuantizedTensor:
         sfmt=sfmt, layout="bitplane", shape=tuple(w.shape[1:]))
 
 
+def _plane2d_shape(shape, sfmt: StorageFormat):
+    """Bitplane-2D layout: [..., K, N] -> [..., nbits, K, N // 32]."""
+    *lead, K, N = shape
+    if N % LANE:
+        raise ValueError(f"N = {N} is not a multiple of {LANE}")
+    return tuple(lead) + (sfmt.nbits, K, N // LANE)
+
+
+def abstract_quantize_params(abstract_params, cfg, fmt_name: str):
+    """Meta-tensor tree -> same tree with target weights replaced by
+    abstract QuantizedTensors (bitplane-2D, shardable along K and
+    N//32).  Used by the dry run: nothing is allocated."""
+    sfmt = _sfmt(fmt_name)
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        name = path[-1] if path else ""
+        parent = path[-2] if len(path) > 1 else ""
+        in_blocks = any(p in ("blocks", "enc_blocks", "logits", "frontend")
+                        for p in path)
+        if (in_blocks and name in _TARGETS
+                and parent not in _SKIP_PARENTS
+                and len(tree.shape) >= 2 and tree.shape[-1] % LANE == 0):
+            lead = tuple(tree.shape[:-2])
+            return QuantizedTensor(
+                data=torch.empty(_plane2d_shape(tree.shape, sfmt),
+                                 dtype=torch.int32, device="meta"),
+                scale=torch.empty(lead, dtype=torch.float32, device="meta"),
+                sfmt=sfmt, layout="bitplane2d",
+                shape=tuple(tree.shape[-2:]))
+        return tree
+
+    return walk(abstract_params, ())
+
+
+def quantized_pspecs(pspec_tree, qparams_tree):
+    """Map the dense-param PartitionSpec tree onto the quantized tree:
+    a leaf spec (*lead, K_ax, N_ax) becomes data (*lead, None, K_ax,
+    N_ax) (planes replicated, K/N//32 inherit) and scale (*lead,)."""
+    from repro_torch.models.schema import PartitionSpec
+
+    def walk(spec, q):
+        if isinstance(q, dict):
+            return {k: walk(spec[k], q[k]) for k in q}
+        if isinstance(q, QuantizedTensor):
+            parts = list(spec)
+            parts += [None] * (len(q.data.shape) - 1 - len(parts))
+            lead, k_ax, n_ax = parts[:-2], parts[-2], parts[-1]
+            return QuantizedTensor(
+                data=PartitionSpec(*lead, None, k_ax, n_ax),
+                scale=PartitionSpec(*lead),
+                sfmt=q.sfmt, layout=q.layout, shape=q.shape)
+        return spec
+
+    return walk(pspec_tree, qparams_tree)
+
+
 def quantize_params(params, cfg, fmt_name: str):
     """-> (new_params, deq_hook).  Weights under blocks/enc_blocks (and
     the logits/frontend heads) move to bitplane storage."""

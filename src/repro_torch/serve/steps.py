@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.ctx import constrain
 from repro_torch.models import decode_step, prefill
 from repro_torch.models.config import ModelConfig
 
@@ -30,6 +31,9 @@ def make_decode_step(cfg: ModelConfig, deq=None, sample: str = "greedy"):
     def serve_step(params, token, pos, cache):
         logits, new_cache = decode_step(params, token, cache, pos, cfg,
                                         deq=deq)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        # On a mesh the vocabulary is gathered first: DTensor's split
+        # argmax gathers through a view that a fake process group fails.
+        nxt = torch.argmax(constrain(logits, "batch", None),
+                           dim=-1).to(torch.int32)
         return nxt, logits, new_cache
     return serve_step

@@ -11,8 +11,11 @@ train state is never held twice (the reference donates it).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+
+from repro_torch.distributed.ctx import batch_local
 
 from repro_torch.models import lm_loss, model_schema
 from repro_torch.models.config import ModelConfig
@@ -49,6 +52,39 @@ def abstract_state(cfg: ModelConfig, tc: TrainConfig):
             "step": torch.empty((), dtype=torch.int32, device="meta")}
 
 
+def _micro(v, *, n: int, i: int):
+    """Micro-batch ``i`` of ``n``: rows ``i * B/n`` to ``(i + 1) * B/n``
+    (on a mesh, of each rank's own rows)."""
+    return v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+
+
+def mesh_rows(batch, n: int, rules):
+    """``batch`` with its rows ordered for a mesh run of ``n``
+    micro-batches under ``rules``: the ranks hold equal blocks of rows
+    and :func:`_micro` takes block ``i`` of each rank's rows, so that
+    micro-batch ``i`` is, over the ranks, the one-device step's rows
+    ``i * B/n`` to ``(i + 1) * B/n``.  The whole batch's loss does not
+    depend on the order; a micro-batch's (its MoE aux) does."""
+    from repro_torch.models.schema import logical_spec
+
+    def order(v):
+        entry = logical_spec(rules, "batch", dims=v.shape[:1])[0]
+        group = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        r = 1
+        for a in group:
+            r *= rules.sizes[a]
+        lead = (n, r, v.shape[0] // (n * r))
+        return v.reshape(lead + v.shape[1:]).transpose(0, 1).reshape(
+            v.shape)
+    return {k: order(v) for k, v in batch.items()}
+
+
+def train_state_specs(cfg: ModelConfig, rules):
+    from repro_torch.distributed.sharding import state_pspecs
+    return state_pspecs(model_schema(cfg), rules)
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig):
     """Returns train_step(state, batch) -> (state, metrics): the state
     updated in place and returned, metrics 0-d float32 tensors
@@ -73,12 +109,11 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         else:
             n = tc.n_micro
             gdt = dtype_of(tc.grad_dtype)
-            grads = [torch.zeros(p.shape, dtype=gdt, device=p.device)
-                     for p in _leaves(params)]
+            grads = [torch.zeros_like(p, dtype=gdt) for p in _leaves(params)]
             loss = torch.zeros((), dtype=torch.float32,
                                device=grads[0].device)
             for i in range(n):
-                mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+                mb = {k: batch_local(functools.partial(_micro, n=n, i=i), v)
                       for k, v in batch.items()}
                 l, _, g = grad_fn(params, mb)
                 for a, b in zip(grads, g):

@@ -600,3 +600,67 @@ def test_train_step_on_card(cuda, arch):
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert float(metrics["grad_norm"]) > 0 and int(state["step"]) == 1
     assert all(bool(torch.isfinite(p).all()) for p in _leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# Distribution on the card (no kernel of the port's own is on this path)
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+def test_compress_grads_on_card_matches_cpu(cuda):
+    """int8 error-feedback compression without a generator: the same
+    float32 operations on the card and on the CPU, bit for bit, over 5
+    rounds."""
+    from repro_torch.distributed.compression import (compress_grads,
+                                                     make_error_feedback)
+    g = torch.Generator().manual_seed(0)
+    grads = [{"w": torch.randn(257, 96, generator=g) * 1e-2,
+              "b": torch.randn(96, generator=g)} for _ in range(5)]
+    ef = {d: make_error_feedback(grads[0]) for d in ("cpu", "cuda")}
+    for gr in grads:
+        out_cpu, ef["cpu"] = compress_grads(gr, ef["cpu"])
+        out_dev, ef["cuda"] = compress_grads(
+            {k: v.to(cuda) for k, v in gr.items()},
+            {k: v.to(cuda) for k, v in ef["cuda"].items()})
+        for k in gr:
+            for a, b in ((out_dev[k], out_cpu[k]), (ef["cuda"][k],
+                                                    ef["cpu"][k])):
+                assert (a.cpu().view(torch.int32)
+                        == b.view(torch.int32)).all(), k
+
+
+@pytest.mark.gpu
+def test_mesh_train_loop_on_card(cuda):
+    """A one-card NCCL mesh (``host_mesh``): two float32 smoke-twin steps
+    through ``train_loop(mesh=)`` give the ``device=`` run's losses
+    within 1e-5 relative (the embedding's backward adds with atomics),
+    and ``compressed_psum`` over the one-rank group equals
+    ``dequantize_int8(*quantize_int8(x))`` bit for bit.  The group is
+    destroyed at the end."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed.compression import (compressed_psum,
+                                                     dequantize_int8,
+                                                     quantize_int8)
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig
+    cfg = dataclasses.replace(smoke_config("qwen2-0.5b"),
+                              compute_dtype="float32")
+    shape = ShapeConfig("t", 64, 4, "train")
+    tc = TrainConfig(opt=OptConfig(warmup_steps=2, total_steps=4),
+                     n_micro=2)
+    quiet = dict(steps=2, tc=tc, print_fn=lambda m: None)
+    _, want = train_loop(cfg, shape, device=cuda, **quiet)
+    mesh = host_mesh("cuda")
+    try:
+        _, got = train_loop(cfg, shape, mesh=mesh, **quiet)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+        x = torch.randn(1000, 33, device=cuda)
+        psum = compressed_psum(x, mesh.get_group("data"))
+        ref = dequantize_int8(*quantize_int8(x))
+        assert (psum.view(torch.int32) == ref.view(torch.int32)).all()
+    finally:
+        dist.destroy_process_group()
