@@ -4,13 +4,13 @@
 Drives the HOBFLOPS CNN inference path at the paper's MobileNets
 14x14x512 width in hobflops9, quantized-weight LM serving at
 qwen2-0.5b's, olmoe-1b-7b's, mamba2-2.7b's and seamless-m4t-medium's
-full width, and LM training at qwen2-0.5b's full width (on one card and
-on a one-card device mesh), through the entry points a user calls, and
-holds all three hand-written CUDA kernels against their plain torch
-versions:
+full width, qwen2-0.5b prefill at 32768 tokens, and LM training at
+qwen2-0.5b's full width (on one card and on a one-card device mesh),
+through the entry points a user calls, and holds every hand-written
+CUDA kernel against its plain torch version:
 
-1. prints the card's name and power limit, builds the three kernels
-   with ``nvcc`` (one process per source, started together) and prints
+1. prints the card's name and power limit, builds the kernels with
+   ``nvcc`` (one process per source, started together) and prints
    each kernel's registers, shared memory and spills from
    ``-Xptxas -v``, the MAC kernels' blocks at the main path's shapes,
    and the dependent-LOP3 latency L from a ``clock64()``
@@ -58,7 +58,8 @@ versions:
    logits must be finite and layer 0's ``w_up`` dequantized on the card
    must equal a numpy decode of its codes bit for bit; one prefill and
    three decode steps of each are traced with ``torch.profiler`` (host
-   time, device busy time, kernel launches);
+   time, device busy time, kernel launches); each prefill launches the
+   blockwise attention forward kernel;
 7b. serves the other LM families at full width and depth, each tree
    drawn on the card by a CUDA generator: olmoe-1b-7b (64 experts
    top-8) and mamba2-2.7b (SSD, 320-token prompts: its 256-token chunk
@@ -74,8 +75,9 @@ versions:
    and, in one slot, equals the plain prefill/decode loop token for
    token.  jamba-v0.1-52b and
    internvl2-26b, which need 209.5 and 79.5 GB at full depth and float32,
-   run as smoke twins: decode after prefill against the forward.  No
-   kernel of the port's own is on this path;
+   run as smoke twins: decode after prefill against the forward.  Every
+   prefill (the enc-dec encoder and cross-attention among them) runs the
+   blockwise attention forward kernel;
 8. trains qwen2-0.5b at full width and depth through ``train_loop``
    (parameters drawn on the card; bf16 compute, float32 parameters and
    moments; sequence 4096, global batch 8 in 4 remat'd micro-batches of
@@ -89,8 +91,9 @@ versions:
    bytes and device->host and file seconds, the restore's seconds, one
    traced step (busy share, launches, top kernels); then the remat
    check: at sequence 512, batch 1, gradients with remat against those
-   without, within ``REMAT_TOL`` of a leaf's largest.  No kernel of the
-   port's own is on this path (the reference trains with ``jnp``);
+   without, within ``REMAT_TOL`` of a leaf's largest.  Every attention
+   layer runs the blockwise attention kernels, forward (twice, with
+   remat) and backward; the run fails if either is not launched;
 9. runs the distribution layer on a one-card mesh: (9a) starts a
    one-rank NCCL group with ``launch.mesh.host_mesh``; (9b) trains step
    8's configuration for 2 steps through ``train_loop(mesh=)`` (state
@@ -104,9 +107,23 @@ versions:
    roofline's step time beside 9b's (no claim); (9d) runs 3 rounds of
    int8 error-feedback ``compress_grads`` over the embedding leaf on the
    card, bit for bit against the CPU, and ``compressed_psum`` over the
-   one-rank group against ``dequantize_int8(*quantize_int8(x))``.  No
-   kernel of the port's own is on this path;
-10. runs the dequant matmul through its entry point at each quantized
+   one-rank group against ``dequantize_int8(*quantize_int8(x))``;
+10. the blockwise attention kernels (``csrc/flash_attention.cu``; the
+   reference computes ``_flash`` with ``jnp``): (10a) at step 8's
+   attention (batch 2, sequence 4096, 14 query heads over 2 kv heads,
+   head 64, bf16, causal) forward and backward, and at one 32768-token
+   layer the forward, against the plain versions on the same CUDA
+   tensors within ``FLASH_TOL``, timed with CUDA events beside the
+   bound (f32 FFMA peak over the causal FLOPs, bytes at 3.35 TB/s), the
+   plain version and ``scaled_dot_product_attention`` in float32 (a
+   yardstick on no path); (10b) qwen2-0.5b prefill of 32768 tokens
+   (prefill_32k's length, batch 1) through ``make_prefill_step``: ms,
+   ``max_memory_allocated``, finite last logits, 24 launches a prefill;
+   at 4096 tokens and float32 compute its last logits against the same
+   prefill with the plain version within ``PREFILL_TOL``; (10c) step
+   8's step time, peak, traced busy share and top kernels beside its
+   reading before these kernels (PERF.md run D8);
+11. runs the dequant matmul through its entry point at each quantized
    projection shape of that model, at M = 512 (a prefill's rows) and
    M = 4 (a decode step's), on layer 0's weights packed in hobflops9:
    held against its plain version within the float32 summation bound,
@@ -116,12 +133,13 @@ versions:
    for w_f > 10), its bound (two TF32 products, each weight decoded
    once, the bytes) and the f32-FMA bound, the plain version and
    ``torch.matmul`` on the decoded weight;
-11. prints one JSON ``kernels`` line and, last, the ``ok`` line.
+12. prints one JSON ``kernels`` line and, last, the ``ok`` line.
 
 Launch counts are zeroed just before steps 2-3, 3b (its queue, fault
-and burst), 7, 7b, 8 and 10 and read just after each; they count CUDA
-kernels (the dequant matmul's tensor-core route launches up to three a
-call, and its row also gives the calls).
+and burst), 7, 7b, 8, 9b, 10b and 11 and read just after each; they
+count CUDA kernels (the dequant matmul's tensor-core route launches up
+to three a call, the attention backward four; their rows
+also give the calls).
 Earlier designs' times are printed from PERF.md, marked so, and are not
 in the JSON line.  Any mismatch or failure exits non-zero.  Conv weights and
 images come from ``numpy.random.default_rng(--seed)``.
@@ -208,6 +226,26 @@ RESUME_TOL, REMAT_TOL = 1e-3, 1e-4
 DIST_STEPS = 2
 DRY_PEAK_RANGE, DRY_FLOP_TOL = (0.75, 1.25), 0.01
 COMPRESS_ROUNDS = 3
+# Step 10: the blockwise attention kernels.  10a at step 8's attention
+# (batch 2, sequence 4096, 14 query heads over 2 kv heads, head 64, bf16
+# inputs, causal) forward and backward, and at one FLASH_LONG-token
+# layer (prefill_32k's length, batch 1) the forward, each against its
+# plain version on the card: within FLASH_TOL of the plain version's
+# largest value (o, dq, dk, dv are bf16: one bf16 rounding of the
+# largest is 2^-7 of it; the f32 sums differ in order only), lse within
+# 1e-6.  The bound: f32 FFMA at FFMA_LANES a cycle an SM (2 FLOPs each)
+# over the causal FLOPs, 4 B Hq D S (S + 1) / 2 forward and twice that
+# backward, against the bytes at HBM_BYTES_PER_S.  10b: qwen2-0.5b
+# prefill at FLASH_LONG tokens; at PREFILL_CHECK tokens and float32
+# compute its last logits with the kernel against the plain version
+# within PREFILL_TOL of the largest |logit| (the same float32 operations
+# in another order).  10c: step 8 beside its reading before these
+# kernels (PERF.md run D8).
+FLASH_SHAPE = (2, 4096, 14, 2, 64)      # B, S, Hq, Hkv, D
+FLASH_LONG, PREFILL_CHECK = 32768, 4096
+FLASH_TOL, PREFILL_TOL = 2.0 ** -7, 1e-4
+FFMA_LANES = 128
+STEP8_D8 = {"step_ms": 3849.9, "peak_gb": 41.88}
 # The earlier designs' times on an H100 80GB HBM3 at 700 W, as PERF.md
 # gives them: fused_mac before its warp-specialised redesign and
 # bitslice_mac before its redesign as a grouped interpreter, at batch 1
@@ -386,6 +424,18 @@ def time_cuda(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_event(fn):
+    """``fn()`` once between CUDA events: (its result, ms)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def median_device_ms(fn, reps: int = REPS, warm: int = 3) -> float:
@@ -628,16 +678,6 @@ def main() -> int:
         w = torch.as_tensor(he_kernels(rng, (kh, kh, cin, c)), device=dev)
         return i_masks, encode_weight_planes(w.reshape(-1, c), fmt)
 
-    def time_event(fn):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return out, start.elapsed_time(end)
-
     # Both wrappers at their defaults, as the main path launches them.
     k_fused = fk
     kernels = {
@@ -827,7 +867,12 @@ def main() -> int:
     t0 = time.perf_counter()
     dist_phase(args.seed, dev, card, step8)
     print(f"step 9 wall time: {time.perf_counter() - t0:.1f} s ({card})")
+    t0 = time.perf_counter()
+    flash_row = flash_phase(args.seed, dev, card, params)
+    step8_beside_d8(step8, card, flash_row)
+    print(f"step 10 wall time: {time.perf_counter() - t0:.1f} s ({card})")
     rows.append(dequant_phase(args.seed, dev, params, n_sm, clock_mhz))
+    rows.append(flash_row)
     print(f"clocks.sm, power.draw, temperature.gpu after the LM phases: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
 
@@ -1000,25 +1045,34 @@ def serve_phase(seed: int, g, g8) -> dict:
 
 def kernel_launches() -> dict:
     """CUDA kernels launched by each wrapper since the last
-    :func:`zero_launches` (each MAC wrapper launches one a call), and the
-    dequant matmul's calls."""
+    :func:`zero_launches` (each MAC wrapper and the attention forward
+    launch one a call, the attention backward four), and the
+    dequant matmul's and the attention backward's calls."""
     from repro_torch.core.fused_backend import kernel as fused
     from repro_torch.kernels.bitslice_mac import kernel as interp
     from repro_torch.kernels.dequant_matmul import kernel as dq
+    from repro_torch.kernels.flash_attention import kernel as fa
     return {"bitslice_mac": interp.bitslice_mac_cuda.launches,
             "fused_mac": fused.fused_mac_cuda.launches,
             "dequant_matmul": dq.dequant_matmul_cuda.kernel_launches,
-            "dequant_matmul_calls": dq.dequant_matmul_cuda.launches}
+            "dequant_matmul_calls": dq.dequant_matmul_cuda.launches,
+            "flash_fwd": fa.flash_fwd_cuda.launches,
+            "flash_bwd": fa.flash_bwd_cuda.kernel_launches,
+            "flash_bwd_calls": fa.flash_bwd_cuda.launches}
 
 
 def zero_launches() -> None:
     from repro_torch.core.fused_backend import kernel as fused
     from repro_torch.kernels.bitslice_mac import kernel as interp
     from repro_torch.kernels.dequant_matmul import kernel as dq
+    from repro_torch.kernels.flash_attention import kernel as fa
     interp.bitslice_mac_cuda.launches = 0
     fused.fused_mac_cuda.launches = 0
     dq.dequant_matmul_cuda.launches = 0
     dq.dequant_matmul_cuda.kernel_launches = 0
+    fa.flash_fwd_cuda.launches = 0
+    fa.flash_bwd_cuda.launches = 0
+    fa.flash_bwd_cuda.kernel_launches = 0
 
 
 def trace_lm_steps(cfg, params, deq, seed: int, dev, steps: int = 3):
@@ -1109,8 +1163,12 @@ def lm_phase(seed: int, dev) -> dict:
                      f"{q} B of planes and scales against {d} B in bf16 "
                      f"({q / d:.4f})")
         print(line)
-    print(f"LM path launches (the dequant hook decodes with torch ops, as "
-          f"the reference's does): {kernel_launches()}")
+    launches = kernel_launches()
+    print(f"LM path launches (the attention forward kernel in each "
+          f"prefill; the dequant hook decodes with torch ops, as the "
+          f"reference's does): {launches}")
+    require(launches["flash_fwd"] > 0,
+            f"the prefills did not launch the attention kernel: {launches}")
     a, b = runs[None][0], runs["hobflops9"][0]
     print(f"greedy agreement float32 vs hobflops9: "
           f"{(a == b).mean():.4f} of {a.size} tokens (untrained weights; "
@@ -1301,10 +1359,11 @@ def engine_queue(cfg, params, dev, seed: int) -> None:
 
 
 def lm_families_phase(seed: int, dev) -> None:
-    """Step 7b: the MoE, SSM, enc-dec, hybrid and VLM families.  No
-    kernel of the port's own runs here (MoE dispatch, the SSD scan and
-    cross-attention are torch ops, as the reference's are jnp ops); the
-    launch counts are read to show it."""
+    """Step 7b: the MoE, SSM, enc-dec, hybrid and VLM families.  MoE
+    dispatch and the SSD scan are torch ops, as the reference's are jnp
+    ops; every prefill's attention, the enc-dec model's encoder and
+    cross-attention among them, runs the blockwise attention forward
+    kernel, and the run fails if it was not launched."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.models.moe import moe, moe_dense_ref
     from repro_torch.quant.apply import make_deq, quantize_params
@@ -1369,8 +1428,11 @@ def lm_families_phase(seed: int, dev) -> None:
                 (2, cfg.num_prefix, cfg.frontend_dim), generator=gen,
                 device=dev)
         decode_against_forward(cfg, params, batch, dev)
-    print(f"step 7b launches (no kernel of the port's own is on this path): "
-          f"{kernel_launches()}")
+    launches = kernel_launches()
+    print(f"step 7b launches: {launches}")
+    require(launches["flash_fwd"] > 0,
+            f"step 7b's prefills did not launch the attention kernel: "
+            f"{launches}")
 
 
 def remat_check(cfg, params, seed: int, dev) -> float:
@@ -1425,9 +1487,11 @@ def train_phase(seed: int, dev, card: str) -> dict:
     """Step 8: qwen2-0.5b trained at full width and depth through
     ``train_loop`` (bf16 compute, float32 parameters and moments),
     crashed after step ``TRAIN_KILL_AT`` and resumed from its
-    checkpoint; the remat check; readings.  No kernel of the port's own
-    is on this path (the reference trains with ``jnp`` only).  Returns
-    the first run's losses and the steady step's ms for step 9."""
+    checkpoint; the remat check; readings.  Every attention layer runs
+    the blockwise attention kernels, forward (and remat's recompute) and
+    backward: the run fails if either was not launched.  Returns the
+    first run's losses, the steady step's ms, the peak, the traced step
+    and the launches for steps 9 and 10c."""
     import shutil
     import tempfile
 
@@ -1519,8 +1583,9 @@ def train_phase(seed: int, dev, card: str) -> dict:
                       f"{sv['d2h_s']:.2f} s, files {sv['files_s']:.2f} s")
         print(f"step 8 restore of step {second['restored_step']} ({card}): "
               f"{second['restore_s']:.2f} s")
-        print(f"step 8 launches (no kernel of the port's own is on this "
-              f"path): {launches}")
+        print(f"step 8 launches: {launches}")
+        require(launches["flash_fwd"] > 0 and launches["flash_bwd"] > 0,
+                f"step 8 did not launch the attention kernels: {launches}")
 
         # One more step, traced.
         ds = dataset_for(cfg, shape, seed)
@@ -1539,7 +1604,8 @@ def train_phase(seed: int, dev, card: str) -> dict:
               f"{REMAT_TOL})")
         del state
         return {"losses": losses1, "step_ms": step_ms, "tc": tc,
-                "shape": shape, "flops": flops}
+                "shape": shape, "flops": flops, "peak": peak,
+                "trace": tr, "launches": launches}
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -1598,8 +1664,7 @@ def dist_phase(seed: int, dev, card: str, step8: dict) -> None:
           f"{stats['step_ms'][0]:.1f} ms); max_memory_allocated "
           f"{peak / 1e9:.2f} GB after reset_peak_memory_stats, "
           f"{own / 1e9:.2f} GB above the {base / 1e9:.2f} GB held "
-          f"before; launches (no kernel of the port's own is on this "
-          f"path): {launches}")
+          f"before; launches: {launches}")
 
     t0 = time.perf_counter()
     rec = build(TRAIN_ARCH, shape, "host", {"n_micro": TRAIN_N_MICRO},
@@ -1654,6 +1719,248 @@ def dist_phase(seed: int, dev, card: str, step8: dict) -> None:
     del table, grads, ef_dev, out_dev, psum
     dist.destroy_process_group()
     torch.cuda.empty_cache()
+
+
+def flash_phase(seed: int, dev, card: str, params: dict) -> dict:
+    """Steps 10a-10b: the blockwise attention kernels against their
+    plain versions on the card and timed beside their bounds and
+    ``scaled_dot_product_attention`` (10a); qwen2-0.5b prefill of
+    ``FLASH_LONG`` tokens from ``params`` (its float32 weights), and at
+    ``PREFILL_CHECK`` tokens its last logits against the plain version
+    (10b).  Returns the ``kernels`` row, whose ``launches`` are 10b's
+    until :func:`step8_beside_d8` gives step 8's."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (flash_bwd_ref,
+                                                         flash_fwd_ref)
+    from repro_torch.serve.steps import make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    peak = n_sm * FFMA_LANES * 2 * clock_mhz * 1e6
+    B, S, Hq, Hkv, D = FLASH_SHAPE
+    G = Hq // Hkv
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(causal=True, q_block=512, kv_block=512)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def causal_flops(b, s):
+        return 4 * b * Hq * D * s * (s + 1) // 2
+
+    def bound(flops, moved):
+        t_c, t_m = flops / peak, moved / HBM_BYTES_PER_S
+        return max(t_c, t_m) * 1e3, "operations" if t_c >= t_m else "bytes"
+
+    def held(name, got, want, tol):
+        top = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        require(got.shape == want.shape and got.dtype == want.dtype
+                and err <= tol * top,
+                f"step 10a {name}: {err:.3e} against the plain version's "
+                f"largest {top:.3e} (bound {tol} of it)")
+        return err
+
+    # -- 10a. at step 8's attention shape, forward and backward ---------
+    print(f"step 10a: blockwise attention ({card}); f32 FFMA peak {n_sm} "
+          f"SMs x {FFMA_LANES} lanes x 2 x {clock_mhz:.0f} MHz = "
+          f"{peak / 1e12:.1f} TFLOP/s, HBM {HBM_BYTES_PER_S / 1e12} TB/s")
+    q, k, v = draw(B, S, Hkv, G, D), draw(B, S, Hkv, D), draw(B, S, Hkv, D)
+    do = draw(B, S, Hkv, G, D)
+    o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    grads = fa.flash_bwd_cuda(do, q, k, v, o, lse, **kw)
+    ro, rl = flash_fwd_ref(q, k, v, **kw)
+    want = flash_bwd_ref(do, q, k, v, ro, rl, **kw)
+    torch.cuda.synchronize()
+    err = held("o", o, ro, FLASH_TOL)
+    held("lse", lse, rl, 1e-6)
+    gerr = {n: held(f"d{n}", a, b, FLASH_TOL)
+            for n, a, b in zip("qkv", grads, want)}
+    fwd_ms = median_device_ms(lambda: fa.flash_fwd_cuda(q, k, v, **kw))
+    bwd_ms = median_device_ms(
+        lambda: fa.flash_bwd_cuda(do, q, k, v, o, lse, **kw))
+    plain_fwd_ms = time_cuda(lambda: flash_fwd_ref(q, k, v, **kw), 3)
+    plain_bwd_ms = time_cuda(
+        lambda: flash_bwd_ref(do, q, k, v, ro, rl, **kw), 3)
+    flops = causal_flops(B, S)
+    b_fwd, by_fwd = bound(flops, nbytes(q, k, v, o, lse))
+    b_bwd, by_bwd = bound(2 * flops, nbytes(q, k, v, o, do, lse, *grads))
+    # The yardstick, on no path of the port: float32, causal, GQA.
+    qs = q.reshape(B, S, Hq, D).transpose(1, 2).float()
+    ks, vs = (t.transpose(1, 2).float() for t in (k, v))
+    dos = do.reshape(B, S, Hq, D).transpose(1, 2).float()
+    sdpa_ms = median_device_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qs, ks, vs))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             enable_gqa=True)
+        torch.autograd.grad(out, (qg, kg, vg), dos)
+
+    sdpa_fb_ms = median_device_ms(sdpa_fwd_bwd, reps=5)
+    print(f"step 10a B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, bf16 inputs, "
+          f"causal (step 8's attention; {flops / 1e9:.2f} GFLOP causal "
+          f"forward): forward {fwd_ms:.3f} ms, bound {b_fwd:.3f} ms "
+          f"({by_fwd}), share {b_fwd / fwd_ms:.3f}, plain {plain_fwd_ms:.3f}"
+          f" ms; backward (Dv, dK/dV, dQ) {bwd_ms:.3f} ms, bound "
+          f"{b_bwd:.3f} ms ({by_bwd}; twice the forward's FLOPs), share "
+          f"{b_bwd / bwd_ms:.3f}, plain {plain_bwd_ms:.3f} ms; max abs err "
+          f"against the plain version: o {err:.3e}, "
+          + ", ".join(f"d{n} {e:.3e}" for n, e in gerr.items())
+          + f" (bound {FLASH_TOL} of each largest value); "
+          f"scaled_dot_product_attention float32 (yardstick, on no path): "
+          f"forward {sdpa_ms:.3f} ms, forward + backward {sdpa_fb_ms:.3f} "
+          f"ms")
+    del o, lse, grads, ro, rl, want, qs, ks, vs, dos, qg, kg, vg
+
+    # -- 10a. one FLASH_LONG-token layer, forward ------------------------
+    q, k, v = (draw(1, FLASH_LONG, Hkv, G, D), draw(1, FLASH_LONG, Hkv, D),
+               draw(1, FLASH_LONG, Hkv, D))
+    o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    (ro, rl), plain_long_ms = time_event(
+        lambda: flash_fwd_ref(q, k, v, **kw))
+    err_long = held(f"o at {FLASH_LONG}", o, ro, FLASH_TOL)
+    held(f"lse at {FLASH_LONG}", lse, rl, 1e-6)
+    del ro, rl
+    long_ms = median_device_ms(lambda: fa.flash_fwd_cuda(q, k, v, **kw),
+                               reps=5, warm=1)
+    f_long = causal_flops(1, FLASH_LONG)
+    b_long, by_long = bound(f_long, nbytes(q, k, v, o, lse))
+    qs = q.reshape(1, FLASH_LONG, Hq, D).transpose(1, 2).float()
+    ks, vs = (t.transpose(1, 2).float().repeat_interleave(G, dim=1)
+              for t in (k, v))
+    try:
+        # The math backend would hold two 60 GB score tensors.
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            sdpa_long = median_device_ms(
+                lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                       is_causal=True),
+                reps=3, warm=1)
+    except RuntimeError as e:
+        sdpa_long = None
+        print(f"    scaled_dot_product_attention at {FLASH_LONG}: not "
+              f"measured ({str(e)[:120]})")
+    print(f"step 10a one {FLASH_LONG}-token layer (batch 1, bf16, causal; "
+          f"{f_long / 1e12:.3f} TFLOP): forward {long_ms:.3f} ms, bound "
+          f"{b_long:.3f} ms ({by_long}), share {b_long / long_ms:.3f}, "
+          f"plain {plain_long_ms:.1f} ms (one call); max abs err o "
+          f"{err_long:.3e}; scaled_dot_product_attention float32 "
+          f"(memory-efficient backend, kv heads repeated): "
+          + (f"{sdpa_long:.3f} ms" if sdpa_long is not None
+             else "not measured"))
+    del q, k, v, o, lse, qs, ks, vs
+    torch.cuda.empty_cache()
+
+    # -- 10b. qwen2-0.5b prefill at FLASH_LONG tokens ---------------------
+    cfg = get_config(LM_ARCH)
+    toks = torch.randint(0, cfg.vocab, (1, FLASH_LONG), generator=gen,
+                         device=dev)
+    step = make_prefill_step(cfg, FLASH_LONG)
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    prefill_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        cache, lg, length = step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        del cache
+    launches = kernel_launches()
+    prefill_peak = torch.cuda.max_memory_allocated()
+    require(launches["flash_fwd"] == 2 * cfg.n_layers,
+            f"10b: {launches['flash_fwd']} attention launches in two "
+            f"prefills of {cfg.n_layers} layers")
+    require(lg.shape == (1, cfg.vocab_padded) and length == FLASH_LONG
+            and bool(torch.isfinite(lg).all()),
+            f"10b: last logits {tuple(lg.shape)} not finite")
+    print(f"step 10b {LM_ARCH} prefill of {FLASH_LONG} tokens ({card}; "
+          f"prefill_32k's length, its batch of 32 cut to 1; float32 "
+          f"weights, bf16 compute; make_prefill_step): "
+          f"{prefill_ms[0]:.1f} ms first, {prefill_ms[1]:.1f} ms second; "
+          f"max_memory_allocated {prefill_peak / 1e9:.2f} GB "
+          f"({(prefill_peak - held_before) / 1e9:.2f} GB above the "
+          f"{held_before / 1e9:.2f} GB held); last logits finite, max "
+          f"|logit| {float(lg.abs().max()):.3f}; launches {launches}")
+    del lg
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    step32 = make_prefill_step(cfg32, PREFILL_CHECK)
+    batch = {"tokens": toks[:, :PREFILL_CHECK]}
+    _, lg_k, _ = step32(params, batch)
+    kernel_fn = fa_ops.flash_fwd_cuda
+    fa_ops.flash_fwd_cuda = flash_fwd_ref     # the plain version, this call
+    try:
+        _, lg_p, _ = step32(params, batch)
+    finally:
+        fa_ops.flash_fwd_cuda = kernel_fn
+    top = float(lg_p.abs().max())
+    perr = float((lg_k - lg_p).abs().max()) / top
+    require(bool(torch.isfinite(lg_k).all()) and perr <= PREFILL_TOL,
+            f"10b: prefill's last logits with the kernel against the plain "
+            f"version: {perr:.3e} of the largest {top:.3f}, bound "
+            f"{PREFILL_TOL}")
+    print(f"step 10b {LM_ARCH} prefill of {PREFILL_CHECK} tokens at float32 "
+          f"compute: last logits with the kernel against the plain "
+          f"version: max err {perr:.3e} of the largest |logit| {top:.3f} "
+          f"(bound {PREFILL_TOL})")
+    del lg_k, lg_p
+    torch.cuda.empty_cache()
+
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/models/attention.py:77 (_flash, jnp; no "
+                    "Pallas kernel)",
+        "launches": launches["flash_fwd"],
+        "launches_prefill_32k": launches["flash_fwd"],
+        "max_abs_err": err, "max_abs_err_bwd": max(gerr.values()),
+        "max_abs_err_32k": err_long,
+        "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": b_fwd,
+        "bound_by": by_fwd, "library_ms": sdpa_ms,
+        "shape": f"B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, bf16, causal "
+                 f"(step 8's attention), forward",
+        "bwd_ms": bwd_ms, "bwd_plain_ms": plain_bwd_ms,
+        "bwd_bound_ms": b_bwd, "bwd_library_ms": sdpa_fb_ms - sdpa_ms,
+        "ms_32k": long_ms, "plain_ms_32k": plain_long_ms,
+        "bound_ms_32k": b_long, "library_ms_32k": sdpa_long,
+        "prefill_32k_ms": prefill_ms[-1],
+        "prefill_32k_peak_gb": prefill_peak / 1e9,
+        "prefill_check_err": perr,
+    }
+
+
+def step8_beside_d8(step8: dict, card: str, row: dict) -> None:
+    """Step 10c: step 8's step time, peak, traced busy share and top
+    kernels with the attention kernels on its path, beside its reading
+    before them (PERF.md run D8); sets ``row``'s launches to step 8's
+    (forward calls plus backward kernels)."""
+    tr, s8 = step8["trace"], step8["launches"]
+    print(f"step 10c ({card}): step 8 with the attention kernels on its "
+          f"path: steady step {step8['step_ms']:.1f} ms against "
+          f"{STEP8_D8['step_ms']} ms before them (PERF.md run D8) "
+          f"({step8['step_ms'] / STEP8_D8['step_ms']:.3f} x); peak "
+          f"{step8['peak'] / 1e9:.2f} GB against {STEP8_D8['peak_gb']} GB; "
+          f"traced step busy {tr['busy_ms']:.1f} of {tr['host_ms']:.1f} ms "
+          f"({100 * tr['busy_ms'] / tr['host_ms']:.1f}%); attention "
+          f"launches {s8['flash_fwd']} forward, {s8['flash_bwd']} backward "
+          f"kernels ({s8['flash_bwd_calls']} calls); top kernels:")
+    for ms, n, name in tr["top"]:
+        print(f"    {ms:9.2f} ms {n:6d}x  {name[:160]}")
+    row["launches"] = s8["flash_fwd"] + s8["flash_bwd"]
+    row["launches_step8"] = {"fwd": s8["flash_fwd"], "bwd": s8["flash_bwd"],
+                             "bwd_calls": s8["flash_bwd_calls"]}
 
 
 def dequant_phase(seed: int, dev, params: dict, n_sm: int,

@@ -94,7 +94,11 @@ def _tensors(tree) -> list:
 
 def _flop_kind(name: str, dtype) -> str:
     """The type a matmul or convolution runs in: its operands' dtype, or
-    ``tf32`` for float32 operands while TF32 is allowed for it."""
+    ``tf32`` for float32 operands while TF32 is allowed for it.  The
+    blockwise attention ops (``flash_fwd``/``flash_bwd``) compute in
+    float32 FMAs whatever their operands' type."""
+    if name in ("flash_fwd", "flash_bwd"):
+        return "float32"
     if dtype == torch.float32:
         conv = "convolution" in name
         if (torch.backends.cudnn.allow_tf32 if conv

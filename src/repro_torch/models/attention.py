@@ -1,11 +1,14 @@
-"""GQA/MQA attention: causal attention over a whole sequence (train and
-prefill), and cached decode of one token.
+"""GQA/MQA attention: blockwise (flash) attention over a whole sequence
+(train and prefill), and cached decode of one token.
 
-Prefill computes each query row's softmax over the whole key row in
-float32 (the reference's blockwise ``_flash`` is the same softmax taken
-in blocks; with one block, as at every prompt up to 512 tokens, the two
-are the same operations).  Decode attends one query against a
-pre-allocated KV cache with a length mask plus an explicit self term.
+Training and prefill never materialize the [S, S] score matrix: as in
+the reference's ``_flash``, query blocks attend to kv blocks with a
+running (max, denominator, accumulator) triple in float32, and the
+backward recomputes each block's probabilities from the saved
+log-sum-exp.  On the card that is one CUDA kernel for the forward and
+four for the backward (``kernels.flash_attention``); on the CPU their
+plain versions.  Decode attends one query against a pre-allocated KV
+cache with a length mask plus an explicit self term.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 
 from repro_torch._build import resolve_device
 from repro_torch.distributed.ctx import constrain, reshape, shard_local
+from repro_torch.kernels.flash_attention.ops import flash_attention
 
 from .config import ModelConfig
 from .layers import apply_rope, rmsnorm, rope_angles, weight_getter
@@ -68,53 +72,37 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, deq=None):
 
 
 # ---------------------------------------------------------------------------
-# Causal attention over the whole prompt (prefill)
+# Flash-style blockwise attention (train / prefill)
 # ---------------------------------------------------------------------------
-def _softmax_attend(q, k, v, *, causal: bool):
-    """q [B,S,Hq,D], k/v [B,S,Hkv,D] -> [B,S,Hq,D], float32 scores.
+def _flash(q, k, v, *, causal: bool, q_block: int, kv_block: int,
+           q_offset: int = 0):
+    """q [B,S,Hq,D], k/v [B,S,Hkv,D] -> [B,S,Hq,D].  Blockwise softmax.
 
-    Query groups are laid out as the reference's blockwise attention
-    anchors them (kv-heads, or when too few the groups within one, over
-    model); each rank then attends its own rows and heads alone."""
+    Query groups are laid out as the reference anchors its blocks
+    (kv-heads, or when too few the groups within one, over model); each
+    rank then runs ``repro_torch::flash_fwd`` on its own rows and heads.
+    ``q_block``/``kv_block`` fix the plain version's order of summation;
+    the CUDA kernels tile on their own, and any S runs (a last block may
+    be short)."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     q5 = ("batch", None, "kvheads", "qgroups", None)
     kv = ("batch", None, "kvheads", None)
-    o = shard_local(functools.partial(_attend, causal=causal),
+    o = shard_local(functools.partial(flash_attention, causal=causal,
+                                      q_block=q_block, kv_block=kv_block,
+                                      q_offset=q_offset),
                     (reshape(q, (B, Sq, Hkv, Hq // Hkv, D), *q5), k, v),
                     (q5, kv, kv))
-    return reshape(o, (B, Sq, Hq, D), "batch", None, "qheads",
-                   None).to(q.dtype)
+    return reshape(o, (B, Sq, Hq, D), "batch", None, "qheads", None)
 
 
-def _attend(q, k, v, *, causal: bool):
-    """q [B,S,Hkv,G,D], k/v [B,S,Hkv,D] -> [B,S,Hkv,G,D] float32.
-
-    The row max only shifts the exponent, and the softmax does not
-    depend on it, so it is taken without a gradient path: its backward
-    would be a mask of the full score tensor whose terms sum to zero."""
-    Sq, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
-    qf = q.to(torch.float32) * D ** -0.5
-    kf, vf = k.to(torch.float32), v.to(torch.float32)
-    s = torch.einsum("btkgd,bukd->btkgu", qf, kf)
-    if causal:
-        qp = torch.arange(Sq, device=q.device)
-        kp = torch.arange(Sk, device=q.device)
-        bias = torch.where(qp[:, None] >= kp[None, :], 0.0, NEG_INF)
-        s = s + bias.to(torch.float32)[None, :, None, None, :]
-    m = torch.clamp(torch.amax(s.detach(), dim=-1), min=NEG_INF)
-    pw = torch.exp(s - m[..., None])
-    denom = torch.sum(pw, dim=-1)
-    o = torch.einsum("btkgu,bukd->btkgd", pw, vf)
-    return o / torch.clamp(denom, min=1e-30)[..., None]
-
-
-def attention(p, x, cfg: ModelConfig, *, causal: bool = True, deq=None):
-    """Full attention over x (prefill).  Returns (out, (k, v))."""
+def attention(p, x, cfg: ModelConfig, *, causal: bool = True,
+              q_block: int = 512, kv_block: int = 512, deq=None):
+    """Full attention over x (train/prefill).  Returns (out, (k, v))."""
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
     q, k, v = _project_qkv(p, x, cfg, positions, deq)
-    o = _softmax_attend(q, k, v, causal=causal)
+    o = _flash(q, k, v, causal=causal, q_block=q_block, kv_block=kv_block)
     o = reshape(o, (B, T, cfg.n_heads * cfg.head_dim), "batch", None,
                 "qheads")
     out = o @ weight_getter(p, deq)("wo").to(x.dtype)

@@ -25,7 +25,7 @@ from repro_torch.distributed.ctx import (constrain, get_act_rules, reshape,
                                          write_rows)
 from repro_torch.quant.storage import QuantizedTensor
 
-from .attention import (_softmax_attend, attention, attn_schema,
+from .attention import (_flash, attention, attn_schema,
                         decode_attention, init_kv_cache)
 from .config import ModelConfig
 from .layers import (dtype_of, embed, embed_schema, logits, logits_schema,
@@ -113,7 +113,7 @@ def cross_attention(p, x, kv, cfg: ModelConfig, deq=None):
     B, T, _ = x.shape
     q = reshape(x @ get("wq").to(x.dtype), (B, T, cfg.n_heads, cfg.head_dim),
                 "batch", None, "qheads", None)
-    o = _softmax_attend(q, *kv, causal=False)
+    o = _flash(q, *kv, causal=False, q_block=512, kv_block=512)
     o = reshape(o, (B, T, cfg.n_heads * cfg.head_dim), "batch", None,
                 "qheads")
     return o @ get("wo").to(x.dtype)

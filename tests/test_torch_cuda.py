@@ -1,4 +1,4 @@
-"""The port's three CUDA kernels against their plain versions, the
+"""The port's CUDA kernels against their plain versions, the
 serving engine on the card against ``graph.run``, and the fused
 emitter's C body against ``eval_netlist``.  The interpreter's C++ core
 is checked on the CPU in ``test_torch_interp.py``.
@@ -557,7 +557,98 @@ def test_emitted_body_matches_eval_netlist(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# LM training on the card (no kernel of the port's own is on this path)
+# Blockwise attention (csrc/flash_attention.cu) against its plain version
+# ---------------------------------------------------------------------------
+# (B, Sq, Sk, Hkv, G, D, dtype, causal, q_offset): several tiles both ways,
+# a ragged last tile (Sq, Sk no multiple of the kernel's 64 or 32 nor of
+# the plain version's blocks), every head size, Sq != Sk; the last three
+# hold more than 32 query tiles a kv head, so dK/dV splits them.
+FLASH_CASES = [
+    (2, 64, 64, 2, 2, 16, torch.float32, True, 0),
+    (2, 64, 64, 2, 2, 16, torch.float32, False, 0),
+    (1, 100, 77, 2, 3, 32, torch.float32, False, 0),
+    (1, 100, 130, 1, 3, 64, torch.float32, True, 30),
+    (2, 130, 130, 2, 7, 64, torch.bfloat16, True, 0),
+    (1, 70, 70, 2, 2, 128, torch.float32, True, 0),
+    (1, 70, 90, 1, 2, 256, torch.float32, True, 5),
+    (1, 33, 33, 1, 1, 256, torch.bfloat16, False, 0),
+    (2, 300, 300, 2, 7, 64, torch.float32, True, 0),
+    (1, 600, 600, 1, 4, 32, torch.bfloat16, True, 3),
+    (1, 520, 300, 2, 4, 128, torch.float32, False, 0),
+]
+# As a share of the plain version's largest magnitude: f32 the same
+# float32 operations in another order (measured on an H100: o 5e-7,
+# gradients 4e-6); bf16 one bf16 rounding of the largest value (2^-7).
+FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -7, 2 ** -7)}
+
+
+def _flash_operands(case, dev):
+    B, Sq, Sk, Hkv, G, D, dt, causal, off = case
+    g = torch.Generator().manual_seed(Sq * 1000 + Sk + D)
+    mk = lambda *s: torch.randn(*s, generator=g).to(dt).to(dev)
+    return (mk(B, Sq, Hkv, G, D), mk(B, Sk, Hkv, D), mk(B, Sk, Hkv, D),
+            mk(B, Sq, Hkv, G, D), dict(causal=causal, q_block=64,
+                                       kv_block=32, q_offset=off))
+
+
+def _share(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernels_match_plain_version(cuda, case):
+    """Forward (o, lse) and backward (dq, dk, dv) kernels against the
+    plain versions on the same CUDA tensors; each wrapper counts its
+    call."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import (flash_bwd_ref,
+                                                         flash_fwd_ref)
+    q, k, v, do, kw = _flash_operands(case, cuda)
+    n_fwd, n_bwd = fa.flash_fwd_cuda.launches, fa.flash_bwd_cuda.launches
+    o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    grads = fa.flash_bwd_cuda(do, q, k, v, o, lse, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_cuda.launches == n_fwd + 1
+    assert fa.flash_bwd_cuda.launches == n_bwd + 1
+    ro, rl = flash_fwd_ref(q, k, v, **kw)
+    want = flash_bwd_ref(do, q, k, v, ro, rl, **kw)
+    t_o, t_g = FLASH_TOL[q.dtype]
+    assert o.dtype == q.dtype and _share(o, ro) <= t_o
+    assert _share(lse, rl) <= 1e-6
+    for name, a, b in zip("qkv", grads, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _share(a, b) <= t_g, (name, _share(a, b))
+
+
+@pytest.mark.gpu
+def test_flash_backward_is_deterministic_and_op_reaches_kernels(cuda):
+    """Two backward calls give the same bits (no atomics), and the
+    model's ``_flash`` under autograd launches the forward and backward
+    kernels through ``repro_torch::flash_fwd``/``flash_bwd``."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models.attention import _flash
+    q, k, v, do, kw = _flash_operands(FLASH_CASES[9], cuda)
+    o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    a = fa.flash_bwd_cuda(do, q, k, v, o, lse, **kw)
+    b = fa.flash_bwd_cuda(do, q, k, v, o, lse, **kw)
+    for x, y in zip(a, b):
+        assert (x.view(torch.uint8) == y.view(torch.uint8)).all()
+    B, Sq, Hkv, G, D = q.shape
+    qh = q.reshape(B, Sq, Hkv * G, D).clone().requires_grad_()
+    kh, vh = k.clone().requires_grad_(), v.clone().requires_grad_()
+    n_fwd, n_bwd = fa.flash_fwd_cuda.launches, fa.flash_bwd_cuda.launches
+    out = _flash(qh, kh, vh, causal=True, q_block=512, kv_block=512)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_cuda.launches == n_fwd + 1
+    assert fa.flash_bwd_cuda.launches == n_bwd + 1
+    assert bool(torch.isfinite(qh.grad.float()).all())
+
+
+# ---------------------------------------------------------------------------
+# LM training on the card (the blockwise attention kernels are on this path)
 # ---------------------------------------------------------------------------
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "olmoe-1b-7b"])
@@ -603,7 +694,8 @@ def test_train_step_on_card(cuda, arch):
 
 
 # ---------------------------------------------------------------------------
-# Distribution on the card (no kernel of the port's own is on this path)
+# Distribution on the card (the blockwise attention kernels are on the
+# mesh train step's path)
 # ---------------------------------------------------------------------------
 @pytest.mark.gpu
 def test_compress_grads_on_card_matches_cpu(cuda):
