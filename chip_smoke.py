@@ -13,8 +13,9 @@ CUDA kernel against its plain torch version:
    ``nvcc`` (one process per source, started together) and prints
    each kernel's registers, shared memory and spills from
    ``-Xptxas -v``, the MAC kernels' blocks at the main path's shapes,
-   and the dependent-LOP3 latency L from a ``clock64()``
-   microbenchmark;
+   the blockwise attention kernels that bf16 and float32 inputs launch
+   (traced: the tensor-core route and the FFMA route), and the
+   dependent-LOP3 latency L from a ``clock64()`` microbenchmark;
 2. answers three requests (batch 1, 2, 4) through the linear stack
    (3x3 512->512 conv, two 1x1 512->512 convs, ReLU after each) with the
    default ``cuda_fused`` backend and again with ``cuda``: the two must
@@ -111,11 +112,17 @@ CUDA kernel against its plain torch version:
 10. the blockwise attention kernels (``csrc/flash_attention.cu``; the
    reference computes ``_flash`` with ``jnp``): (10a) at step 8's
    attention (batch 2, sequence 4096, 14 query heads over 2 kv heads,
-   head 64, bf16, causal) forward and backward, and at one 32768-token
-   layer the forward, against the plain versions on the same CUDA
-   tensors within ``FLASH_TOL``, timed with CUDA events beside the
-   bound (f32 FFMA peak over the causal FLOPs, bytes at 3.35 TB/s), the
-   plain version and ``scaled_dot_product_attention`` in float32 (a
+   head 64, bf16, causal: the tensor-core route) forward and backward,
+   and at one 32768-token layer the forward, against the plain versions
+   on the same CUDA tensors within ``FLASH_TOL`` and with at most
+   ``FLASH_BITS_OFF`` of each bf16 output's elements not bit-equal to
+   the plain version's; two calls of each equal bit for bit; the float32
+   (FFMA) route at a small shape within ``FLASH_F32_TOL``; timed with
+   CUDA events beside three bounds (the tensor cores over the bf16
+   half-products the function needs, ``exp``, and the f32 FFMA bound of
+   the FFMA design), the bytes at 3.35 TB/s,
+   the FFMA design's times (PERF.md run F3, not measured in the run),
+   the plain version and ``scaled_dot_product_attention`` in float32 (a
    yardstick on no path); (10b) qwen2-0.5b prefill of 32768 tokens
    (prefill_32k's length, batch 1) through ``make_prefill_step``: ms,
    ``max_memory_allocated``, finite last logits, 24 launches a prefill;
@@ -232,10 +239,27 @@ COMPRESS_ROUNDS = 3
 # layer (prefill_32k's length, batch 1) the forward, each against its
 # plain version on the card: within FLASH_TOL of the plain version's
 # largest value (o, dq, dk, dv are bf16: one bf16 rounding of the
-# largest is 2^-7 of it; the f32 sums differ in order only), lse within
-# 1e-6.  The bound: f32 FFMA at FFMA_LANES a cycle an SM (2 FLOPs each)
-# over the causal FLOPs, 4 B Hq D S (S + 1) / 2 forward and twice that
-# backward, against the bytes at HBM_BYTES_PER_S.  10b: qwen2-0.5b
+# largest is 2^-7 of it), lse within 1e-6; two calls of each kernel
+# equal bit for bit.  The products are exact on both sides, the f32 sums
+# differ in order and in wgmma's accumulation, so most bf16 outputs
+# round to the plain version's bits: at most FLASH_BITS_OFF of each
+# output's elements may differ.  On the H100 the builds of the source
+# (every dK/dV run length and warpgroup count) differ in 0.15-2.15% an
+# output at step 8's shape; one bf16 half-product a split product (P, dS
+# rounded to bf16) in 40-43% (PERF.md run H1): the bound is a quarter of
+# that.  A 2-term split (no lo) is not seen (0.34-0.71%).  The bf16
+# route's bound is the largest of: the bf16 half-products the function
+# needs a tile pair (FLASH_HALF_PRODUCTS, each 2 D FLOPs a score
+# element; the design issues FLASH_ISSUED, printed beside) at
+# BF16_FLOPS_A_CLOCK an SM at the SM clock, as the exp and FFMA peaks
+# (the data sheet's 989 TFLOP/s is at 1830 MHz; printed beside); one exp
+# a causal score element at EXP_PER_SM a cycle an SM; the bytes at
+# HBM_BYTES_PER_S.
+# Beside it, the FFMA design's bound: f32 FFMA at FFMA_LANES a cycle an SM
+# (2 FLOPs each) over the causal FLOPs, 4 B Hq D S (S + 1) / 2 forward
+# and twice that backward.  The float32 route at FLASH_F32_CASE (B, Sq,
+# Sk, Hkv, G, D; causal) within FLASH_F32_TOL of the largest value (o;
+# gradients): the same float32 operations in another order.  10b: qwen2-0.5b
 # prefill at FLASH_LONG tokens; at PREFILL_CHECK tokens and float32
 # compute its last logits with the kernel against the plain version
 # within PREFILL_TOL of the largest |logit| (the same float32 operations
@@ -245,6 +269,13 @@ FLASH_SHAPE = (2, 4096, 14, 2, 64)      # B, S, Hq, Hkv, D
 FLASH_LONG, PREFILL_CHECK = 32768, 4096
 FLASH_TOL, PREFILL_TOL = 2.0 ** -7, 1e-4
 FFMA_LANES = 128
+FLASH_BITS_OFF = 0.1
+BF16_FLOPS_A_CLOCK = 4096      # dense bf16 wgmma FLOPs a clock an SM
+BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16
+EXP_PER_SM = 16                # MUFU exp2 results per clock per SM
+FLASH_HALF_PRODUCTS = {"fwd": 4, "bwd": 11}
+FLASH_ISSUED = {"fwd": 4, "bwd": 13}
+FLASH_F32_CASE, FLASH_F32_TOL = (2, 300, 300, 2, 7, 64), (1e-5, 1e-4)
 STEP8_D8 = {"step_ms": 3849.9, "peak_gb": 41.88}
 # The earlier designs' times on an H100 80GB HBM3 at 700 W, as PERF.md
 # gives them: fused_mac before its warp-specialised redesign and
@@ -255,6 +286,9 @@ STEP8_D8 = {"step_ms": 3849.9, "peak_gb": 41.88}
 EARLIER_FUSED_MS = {"1x1": 0.428, "3x3": 4.526}
 EARLIER_INTERP_MS = {"1x1": 63.750, "3x3": 574.461}
 EARLIER_DQ_MS = 1.958
+# The blockwise attention's f32 FFMA design (PERF.md run F3) at step 8's
+# attention, forward and backward, and one 32768-token forward.
+EARLIER_FLASH_MS = {"fwd": 2.284, "bwd": 7.826, "fwd_32k": 70.232}
 # The dequant matmul's largest error against its plain version, in units
 # of the float32 summation bound, may be at most this share of that of a
 # single-TF32 product (x rounded to TF32): the x_lo half must count.
@@ -603,6 +637,7 @@ def main() -> int:
           f"slot {fct} channels, "
           f"{fused.smem_bytes(fmt.nbits, fmt.mult_out().nbits, fp, fm, fct)}"
           f" B dynamic shared memory")
+    flash_route_trace(dev)
     lop3 = lop3_readings(_build)
     lop3_l = lop3["dependent_1w"]
     print(f"dependent LOP3 latency L = {lop3_l:.2f} cycles; one warp issues "
@@ -1721,6 +1756,52 @@ def dist_phase(seed: int, dev, card: str, step8: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def flash_route_trace(dev) -> None:
+    """The blockwise attention kernels each input dtype launches, traced:
+    bf16 operands must reach the three tensor-core kernels and float32
+    ones none (the FFMA kernels), with the Dv pass and the runs' sum on
+    both.  Run before the other phases: after them the tracer has come
+    back empty from such a short window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, sq, sk, hkv, g, d = FLASH_F32_CASE
+    kw = dict(causal=True, q_block=512, kv_block=512)
+    names = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, do = (torch.randn(b, sq, hkv, g, d, generator=gen,
+                             device=dev).to(dt) for _ in range(2))
+        k, v = (torch.randn(b, sk, hkv, d, generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # The tracer can miss a window's first kernels.
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.1)
+            for _ in range(2):
+                fa.flash_fwd_cuda(q, k, v, **kw)
+                fa.flash_bwd_cuda(do, q, k, v, o, lse, **kw)
+            torch.cuda.synchronize()
+        names[dt] = {
+            e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "flash" in e.key}
+    tc, ffma = names[torch.bfloat16], names[torch.float32]
+    require(len(tc) == 5 and len(ffma) == 5
+            and sum("_tc_kernel" in n for n in tc) == 3
+            and not any("_tc_kernel" in n for n in ffma),
+            f"attention kernels by route: bf16 {sorted(tc)}, float32 "
+            f"{sorted(ffma)}")
+    short = lambda ns: sorted(re.search(r"flash_\w+", n).group(0)
+                              for n in ns)
+    print(f"blockwise attention routes, traced: bf16 -> {short(tc)}; "
+          f"float32 -> {short(ffma)}")
+
+
 def flash_phase(seed: int, dev, card: str, params: dict) -> dict:
     """Steps 10a-10b: the blockwise attention kernels against their
     plain versions on the card and timed beside their bounds and
@@ -1743,24 +1824,50 @@ def flash_phase(seed: int, dev, card: str, params: dict) -> dict:
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     peak = n_sm * FFMA_LANES * 2 * clock_mhz * 1e6
+    exp_rate = n_sm * EXP_PER_SM * clock_mhz * 1e6
+    tc_rate = n_sm * BF16_FLOPS_A_CLOCK * clock_mhz * 1e6
     B, S, Hq, Hkv, D = FLASH_SHAPE
     G = Hq // Hkv
     gen = torch.Generator(device=dev).manual_seed(seed)
     kw = dict(causal=True, q_block=512, kv_block=512)
 
-    def draw(*shape):
-        return torch.randn(*shape, generator=gen, device=dev).to(
-            torch.bfloat16)
+    def draw(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    def causal_flops(b, s):
-        return 4 * b * Hq * D * s * (s + 1) // 2
+    def causal_elems(b, s):
+        return b * Hq * s * (s + 1) // 2
 
-    def bound(flops, moved):
-        t_c, t_m = flops / peak, moved / HBM_BYTES_PER_S
-        return max(t_c, t_m) * 1e3, "operations" if t_c >= t_m else "bytes"
+    def bounds(elems, moved, which):
+        """ms of each bound of a call over ``elems`` causal score
+        elements; ``bound`` is the largest of the tensor, exp and bytes
+        bounds, ``by`` what sets it.  ``tensor_989`` is the tensor bound
+        at the data sheet's rate, ``tensor_issued`` at the half-products
+        the design issues: printed, neither sets ``bound``."""
+        mult = 1 if which == "fwd" else 2
+        flops = 2 * elems * D
+        out = {"ffma": mult * 4 * elems * D / peak * 1e3,
+               "tensor": FLASH_HALF_PRODUCTS[which] * flops / tc_rate * 1e3,
+               "tensor_989": FLASH_HALF_PRODUCTS[which] * flops
+               / BF16_FLOPS_PER_S * 1e3,
+               "tensor_issued": FLASH_ISSUED[which] * flops / tc_rate * 1e3,
+               "exp": elems / exp_rate * 1e3,
+               "bytes": moved / HBM_BYTES_PER_S * 1e3}
+        out["bound"] = max(out["tensor"], out["exp"], out["bytes"])
+        out["by"] = "bytes" if out["bound"] == out["bytes"] else "operations"
+        return out
+
+    def bound_text(bd, ms):
+        return (f"bound {bd['bound']:.3f} ms ({bd['by']}; tensor "
+                f"{bd['tensor']:.3f}, exp {bd['exp']:.3f}, bytes "
+                f"{bd['bytes']:.3f}), share {bd['bound'] / ms:.3f}; tensor "
+                f"at 989 TFLOP/s {bd['tensor_989']:.3f} ms, share "
+                f"{bd['tensor_989'] / ms:.3f}; tensor over the half-products "
+                f"issued {bd['tensor_issued']:.3f} ms, share "
+                f"{bd['tensor_issued'] / ms:.3f}; f32 FFMA bound "
+                f"{bd['ffma']:.3f} ms, share {bd['ffma'] / ms:.3f}")
 
     def held(name, got, want, tol):
         top = float(want.float().abs().max())
@@ -1771,10 +1878,25 @@ def flash_phase(seed: int, dev, card: str, params: dict) -> dict:
                 f"largest {top:.3e} (bound {tol} of it)")
         return err
 
+    def bits_held(name, got, want):
+        """The share of ``got``'s bf16 elements whose bits differ from
+        the plain version's; at most ``FLASH_BITS_OFF``."""
+        as16 = lambda t: t.contiguous().view(torch.int16)
+        off = float((as16(got) != as16(want)).float().mean())
+        require(off <= FLASH_BITS_OFF,
+                f"step 10a {name}: {off:.4%} of the elements differ from the "
+                f"plain version's in their bits (bound {FLASH_BITS_OFF})")
+        return off
+
     # -- 10a. at step 8's attention shape, forward and backward ---------
-    print(f"step 10a: blockwise attention ({card}); f32 FFMA peak {n_sm} "
-          f"SMs x {FFMA_LANES} lanes x 2 x {clock_mhz:.0f} MHz = "
-          f"{peak / 1e12:.1f} TFLOP/s, HBM {HBM_BYTES_PER_S / 1e12} TB/s")
+    print(f"step 10a: blockwise attention ({card}); bf16 tensor cores "
+          f"{n_sm} SMs x {BF16_FLOPS_A_CLOCK} x {clock_mhz:.0f} MHz = "
+          f"{tc_rate / 1e12:.1f} TFLOP/s (data sheet "
+          f"{BF16_FLOPS_PER_S / 1e12:.0f}); exp {n_sm} SMs x "
+          f"{EXP_PER_SM} x {clock_mhz:.0f} MHz = {exp_rate / 1e12:.3f} T/s; "
+          f"f32 FFMA peak {n_sm} SMs x {FFMA_LANES} lanes x 2 x "
+          f"{clock_mhz:.0f} MHz = {peak / 1e12:.1f} TFLOP/s; HBM "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s")
     q, k, v = draw(B, S, Hkv, G, D), draw(B, S, Hkv, D), draw(B, S, Hkv, D)
     do = draw(B, S, Hkv, G, D)
     o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
@@ -1786,15 +1908,25 @@ def flash_phase(seed: int, dev, card: str, params: dict) -> dict:
     held("lse", lse, rl, 1e-6)
     gerr = {n: held(f"d{n}", a, b, FLASH_TOL)
             for n, a, b in zip("qkv", grads, want)}
+    bits_off = {"o": bits_held("o", o, ro)}
+    bits_off.update({f"d{n}": bits_held(f"d{n}", a, b)
+                     for n, a, b in zip("qkv", grads, want)})
+    o2, lse2 = fa.flash_fwd_cuda(q, k, v, **kw)
+    grads2 = fa.flash_bwd_cuda(do, q, k, v, o, lse, **kw)
+    require(same_bits(o, o2) and same_bits(lse, lse2),
+            "step 10a: two forward calls differ")
+    require(all(same_bits(a, b) for a, b in zip(grads, grads2)),
+            "step 10a: two backward calls differ")
+    del o2, lse2, grads2
     fwd_ms = median_device_ms(lambda: fa.flash_fwd_cuda(q, k, v, **kw))
     bwd_ms = median_device_ms(
         lambda: fa.flash_bwd_cuda(do, q, k, v, o, lse, **kw))
     plain_fwd_ms = time_cuda(lambda: flash_fwd_ref(q, k, v, **kw), 3)
     plain_bwd_ms = time_cuda(
         lambda: flash_bwd_ref(do, q, k, v, ro, rl, **kw), 3)
-    flops = causal_flops(B, S)
-    b_fwd, by_fwd = bound(flops, nbytes(q, k, v, o, lse))
-    b_bwd, by_bwd = bound(2 * flops, nbytes(q, k, v, o, do, lse, *grads))
+    elems = causal_elems(B, S)
+    bd_fwd = bounds(elems, nbytes(q, k, v, o, lse), "fwd")
+    bd_bwd = bounds(elems, nbytes(q, k, v, o, do, lse, *grads), "bwd")
     # The yardstick, on no path of the port: float32, causal, GQA.
     qs = q.reshape(B, S, Hq, D).transpose(1, 2).float()
     ks, vs = (t.transpose(1, 2).float() for t in (k, v))
@@ -1810,19 +1942,44 @@ def flash_phase(seed: int, dev, card: str, params: dict) -> dict:
 
     sdpa_fb_ms = median_device_ms(sdpa_fwd_bwd, reps=5)
     print(f"step 10a B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, bf16 inputs, "
-          f"causal (step 8's attention; {flops / 1e9:.2f} GFLOP causal "
-          f"forward): forward {fwd_ms:.3f} ms, bound {b_fwd:.3f} ms "
-          f"({by_fwd}), share {b_fwd / fwd_ms:.3f}, plain {plain_fwd_ms:.3f}"
-          f" ms; backward (Dv, dK/dV, dQ) {bwd_ms:.3f} ms, bound "
-          f"{b_bwd:.3f} ms ({by_bwd}; twice the forward's FLOPs), share "
-          f"{b_bwd / bwd_ms:.3f}, plain {plain_bwd_ms:.3f} ms; max abs err "
-          f"against the plain version: o {err:.3e}, "
+          f"causal (step 8's attention; {elems * 4 * D / 1e9:.2f} GFLOP "
+          f"causal forward): forward {fwd_ms:.3f} ms, "
+          f"{bound_text(bd_fwd, fwd_ms)}, plain {plain_fwd_ms:.3f} ms; "
+          f"backward (Dv, dK/dV, sum, dQ) {bwd_ms:.3f} ms, "
+          f"{bound_text(bd_bwd, bwd_ms)}, plain {plain_bwd_ms:.3f} ms; "
+          f"max abs err against the plain version: o {err:.3e}, "
           + ", ".join(f"d{n} {e:.3e}" for n, e in gerr.items())
-          + f" (bound {FLASH_TOL} of each largest value); "
-          f"scaled_dot_product_attention float32 (yardstick, on no path): "
-          f"forward {sdpa_ms:.3f} ms, forward + backward {sdpa_fb_ms:.3f} "
-          f"ms")
+          + f" (bound {FLASH_TOL} of each largest value); elements not "
+          f"bit-equal to the plain version's: "
+          + ", ".join(f"{n} {x:.4%}" for n, x in bits_off.items())
+          + f" (bound {FLASH_BITS_OFF:.0%}); two calls of "
+          f"each equal bit for bit; scaled_dot_product_attention float32 "
+          f"(yardstick, on no path): forward {sdpa_ms:.3f} ms, forward + "
+          f"backward {sdpa_fb_ms:.3f} ms; the FFMA design (PERF.md run F3, "
+          f"not measured in this run): forward {EARLIER_FLASH_MS['fwd']} "
+          f"ms, backward {EARLIER_FLASH_MS['bwd']} ms")
     del o, lse, grads, ro, rl, want, qs, ks, vs, dos, qg, kg, vg
+
+    # -- 10a. the float32 route at a small shape -------------------------
+    fb, fsq, fsk, fhkv, fg, fd = FLASH_F32_CASE
+    q, k, v, do = (draw(fb, fsq, fhkv, fg, fd, dtype=torch.float32),
+                   draw(fb, fsk, fhkv, fd, dtype=torch.float32),
+                   draw(fb, fsk, fhkv, fd, dtype=torch.float32),
+                   draw(fb, fsq, fhkv, fg, fd, dtype=torch.float32))
+    o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    grads = fa.flash_bwd_cuda(do, q, k, v, o, lse, **kw)
+    ro, rl = flash_fwd_ref(q, k, v, **kw)
+    want = flash_bwd_ref(do, q, k, v, ro, rl, **kw)
+    torch.cuda.synchronize()
+    f32_err = held("float32 o", o, ro, FLASH_F32_TOL[0])
+    held("float32 lse", lse, rl, 1e-6)
+    f32_gerr = max(held(f"float32 d{n}", a, b, FLASH_F32_TOL[1])
+                   for n, a, b in zip("qkv", grads, want))
+    print(f"step 10a float32 route (FFMA) at B {fb}, Sq {fsq}, Sk {fsk}, "
+          f"Hkv {fhkv}, G {fg}, D {fd}, causal: max abs err o "
+          f"{f32_err:.3e}, gradients {f32_gerr:.3e} (bounds "
+          f"{FLASH_F32_TOL} of the largest value)")
+    del q, k, v, do, o, lse, grads, ro, rl, want
 
     # -- 10a. one FLASH_LONG-token layer, forward ------------------------
     q, k, v = (draw(1, FLASH_LONG, Hkv, G, D), draw(1, FLASH_LONG, Hkv, D),
@@ -1832,11 +1989,12 @@ def flash_phase(seed: int, dev, card: str, params: dict) -> dict:
         lambda: flash_fwd_ref(q, k, v, **kw))
     err_long = held(f"o at {FLASH_LONG}", o, ro, FLASH_TOL)
     held(f"lse at {FLASH_LONG}", lse, rl, 1e-6)
+    bits_off["o_32k"] = bits_held(f"o at {FLASH_LONG}", o, ro)
     del ro, rl
     long_ms = median_device_ms(lambda: fa.flash_fwd_cuda(q, k, v, **kw),
                                reps=5, warm=1)
-    f_long = causal_flops(1, FLASH_LONG)
-    b_long, by_long = bound(f_long, nbytes(q, k, v, o, lse))
+    e_long = causal_elems(1, FLASH_LONG)
+    bd_long = bounds(e_long, nbytes(q, k, v, o, lse), "fwd")
     qs = q.reshape(1, FLASH_LONG, Hq, D).transpose(1, 2).float()
     ks, vs = (t.transpose(1, 2).float().repeat_interleave(G, dim=1)
               for t in (k, v))
@@ -1852,13 +2010,17 @@ def flash_phase(seed: int, dev, card: str, params: dict) -> dict:
         print(f"    scaled_dot_product_attention at {FLASH_LONG}: not "
               f"measured ({str(e)[:120]})")
     print(f"step 10a one {FLASH_LONG}-token layer (batch 1, bf16, causal; "
-          f"{f_long / 1e12:.3f} TFLOP): forward {long_ms:.3f} ms, bound "
-          f"{b_long:.3f} ms ({by_long}), share {b_long / long_ms:.3f}, "
-          f"plain {plain_long_ms:.1f} ms (one call); max abs err o "
-          f"{err_long:.3e}; scaled_dot_product_attention float32 "
-          f"(memory-efficient backend, kv heads repeated): "
+          f"{e_long * 4 * D / 1e12:.3f} TFLOP): forward {long_ms:.3f} ms, "
+          f"{bound_text(bd_long, long_ms)}, plain {plain_long_ms:.1f} ms "
+          f"(one call); max abs err o {err_long:.3e}, "
+          f"{bits_off['o_32k']:.4%} of o not bit-equal to the plain "
+          f"version's; "
+          f"scaled_dot_product_attention float32 (memory-efficient "
+          f"backend, kv heads repeated): "
           + (f"{sdpa_long:.3f} ms" if sdpa_long is not None
-             else "not measured"))
+             else "not measured")
+          + f"; the FFMA design (PERF.md run F3, not measured in this run): "
+          f"{EARLIER_FLASH_MS['fwd_32k']} ms")
     del q, k, v, o, lse, qs, ks, vs
     torch.cuda.empty_cache()
 
@@ -1927,14 +2089,19 @@ def flash_phase(seed: int, dev, card: str, params: dict) -> dict:
         "launches_prefill_32k": launches["flash_fwd"],
         "max_abs_err": err, "max_abs_err_bwd": max(gerr.values()),
         "max_abs_err_32k": err_long,
-        "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": b_fwd,
-        "bound_by": by_fwd, "library_ms": sdpa_ms,
+        "max_abs_err_f32_route": max(f32_err, f32_gerr),
+        "bits_off": bits_off,
+        "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": bd_fwd["bound"],
+        "bound_by": bd_fwd["by"], "library_ms": sdpa_ms,
+        "bounds_ms": {k: v for k, v in bd_fwd.items() if k != "by"},
         "shape": f"B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, bf16, causal "
                  f"(step 8's attention), forward",
         "bwd_ms": bwd_ms, "bwd_plain_ms": plain_bwd_ms,
-        "bwd_bound_ms": b_bwd, "bwd_library_ms": sdpa_fb_ms - sdpa_ms,
+        "bwd_bound_ms": bd_bwd["bound"],
+        "bwd_bounds_ms": {k: v for k, v in bd_bwd.items() if k != "by"},
+        "bwd_library_ms": sdpa_fb_ms - sdpa_ms,
         "ms_32k": long_ms, "plain_ms_32k": plain_long_ms,
-        "bound_ms_32k": b_long, "library_ms_32k": sdpa_long,
+        "bound_ms_32k": bd_long["bound"], "library_ms_32k": sdpa_long,
         "prefill_32k_ms": prefill_ms[-1],
         "prefill_32k_peak_gb": prefill_peak / 1e9,
         "prefill_check_err": perr,

@@ -6,8 +6,31 @@ fuses on the TPU.  On the card the scan is ``csrc/flash_attention.cu``:
 one kernel for the forward (online softmax in registers, causal tiles
 above the diagonal skipped), four for the backward (the Dv row dot,
 dK/dV by key tile and run of query tiles, the runs' sum, dQ by query
-tile; no atomics).  Its header note says
-what bounds it on the H100.
+tile; no atomics, so two calls give the same bits).
+
+Two routes, chosen by the inputs' dtype (the flag :func:`_dims` passes
+to the C entries), both exact in their products:
+
+* bfloat16: Hopper tensor cores.  A bf16 x bf16 product is exact in
+  float32, so q.k^T and dO.v^T are one bf16 ``wgmma`` each with f32
+  accumulation.  P.v, P^T.dO, dS.k and dS^T.q have a float32 operand
+  (P or dS), which the kernel splits exactly into three bf16 values
+  (``ref.split_bf16``: hi + mid + lo = x): three ``wgmma``s reproduce
+  the float32 products.  The sums differ from the plain version's in
+  order and in ``wgmma``'s f32 accumulation, which does not round to
+  nearest at each addition; ``chip_smoke.py`` holds the share of bf16
+  outputs whose bits differ from the plain version's.  A 64 x 64 tile
+  pair issues 4 bf16 half-products forward and 13 backward (the function
+  needs 11: the dQ kernel recomputes S and dP); k and v tiles come by
+  TMA (in the forward and dQ, into a ring of stages a producer warp
+  fills).  Bounds on the H100: the half-products at 4096 bf16 FLOPs a
+  clock an SM (989 TFLOP/s at 1830 MHz), ``exp`` at 16 a clock an SM,
+  bytes at 3.35 TB/s.
+* float32: float32 FFMA (the CPU-compute checks and float32 serving
+  prefill reach it), bound by 66.9 TFLOP/s of FFMA.
+
+A failure to build or launch raises; it never moves a call to the other
+route or to the plain version.
 
 Layouts (the ``shard_local`` layout of the port's attention):
     q      : [B, Sq, Hkv, G, D]  bfloat16 or float32
@@ -50,7 +73,7 @@ def load(library: _build.Library) -> None:
     _BOUND["bwd"] = _build.bind(library.lib, "flash_bwd_launch",
                                 [vp] * 11 + dims + [pi, vp])
     _BOUND["workspace"] = _build.bind(library.lib, "flash_bwd_workspace",
-                                      [ci] * 6, ctypes.c_long)
+                                      [ci] * 7, ctypes.c_long)
 
 
 def _entry(name: str):
@@ -130,7 +153,8 @@ def flash_bwd_cuda(do, q, k, v, o, lse, *, causal: bool, q_block: int = 512,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dvec = torch.empty(q.shape[:4], dtype=torch.float32, device=q.device)
     B, Sq, Hkv, G, D = q.shape
-    part = torch.empty(_entry("workspace")(B, Sq, k.shape[1], Hkv, G, D),
+    part = torch.empty(_entry("workspace")(B, Sq, k.shape[1], Hkv, G, D,
+                                           int(q.dtype == torch.bfloat16)),
                        dtype=torch.float32, device=q.device)
     n = ctypes.c_int(0)
     with torch.cuda.device(q.device):

@@ -2,6 +2,9 @@
 reference's two nested scans (``repro.models.attention._flash``) as
 Python loops over blocks, on tensors of any device.
 
+``split_bf16`` is the kernels' split of a float32 operand into three
+bf16 values for the tensor cores.
+
 Layouts: q [B, Sq, Hkv, G, D] (G query heads a kv head), k and v
 [B, Sk, Hkv, D]; o in q's type, lse [B, Sq, Hkv, G] float32.  Where Sq
 or Sk is not a multiple of its block, the last block is short (the
@@ -95,3 +98,21 @@ def flash_bwd_ref(do, q, k, v, o, lse, *, causal: bool, q_block: int,
             dq[:, q0:q1] += torch.einsum("btkgu,bukd->btkgd", ds, kc)
             dk[:, k0:k1] += torch.einsum("btkgu,btkgd->bukd", ds, qc)
     return (dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def split_bf16(x):
+    """The bf16 route's split of a float32 tensor: ``(hi, mid, lo)`` in
+    bfloat16 with ``hi + mid + lo == x`` exactly (``hi = bf16(x)``,
+    ``mid = bf16(x - hi)``, ``lo = bf16(x - hi - mid)``, each rounded to
+    nearest even and each subtraction exact in float32).  ``lo`` holds
+    the last 8 or fewer significant bits of x, so the sum is exact unless
+    x is below ~2^-100, where they fall among bf16's subnormals, or
+    |x| >= 2^128 (1 - 2^-9), where hi rounds to infinity.  The
+    kernels (``csrc/flash_attention.cu``, ``split3``) compute P.v as
+    hi.v + mid.v + lo.v with bf16 v: three exact bf16 products."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16)
+    r = x - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo

@@ -20,10 +20,13 @@ Tolerances, as a share of the reference's largest magnitude:
 * the smoke twin's loss within 1e-5 relative and each gradient leaf
   within 1e-4 of its largest value, as ``test_torch_train.py`` holds
   ``lm_loss``;
-* the dry run's counted FLOPs: equal.
+* the dry run's counted FLOPs: equal;
+* the bf16 route's split of a float32 operand (``ref.split_bf16``):
+  exact, no tolerance.
 """
 import dataclasses
 import math
+import struct
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -42,8 +45,9 @@ from repro.models.config import ShapeConfig as JShapeConfig
 from repro_torch.configs import smoke_config
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.data import pipeline
+from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+from repro_torch.kernels.flash_attention.ref import flash_fwd_ref, split_bf16
 from repro_torch.launch import dryrun as tdry
 from repro_torch.launch.mesh import fake_world
 from repro_torch.models import lm_loss
@@ -284,3 +288,70 @@ def test_dryrun_flops_equal_analytic_with_flash():
             4 * want["attention"] // 3 + head
     finally:
         dist.destroy_process_group()
+
+
+def _split_inputs(kind):
+    """float32 values the bf16 route splits: seeded random values over
+    many binades, ``exp`` outputs in (0, 1] (probabilities), and 0, 1,
+    the largest bf16 and the largest float32 whose split is finite."""
+    rng = np.random.default_rng(5)
+    if kind == "binades":
+        x = rng.uniform(1, 2, 4096) * 2.0 ** rng.integers(-100, 100, 4096)
+        x *= rng.choice([-1.0, 1.0], 4096)
+    elif kind == "exp":
+        x = np.exp(-rng.uniform(0, 60, 4096))
+        x[:3] = [1.0, np.exp(-1e-7), np.exp(-59.9)]
+    else:
+        x = np.array([0.0, 1.0, -1.0, float(torch.finfo(torch.bfloat16).max),
+                      struct.unpack("<f", struct.pack("<I", 0x7F7F7FFF))[0]])
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["binades", "exp", "special"])
+def test_split_bf16_is_exact(kind):
+    """hi + mid + lo == x exactly (in float64), each piece a bf16 value
+    that its float32 residual held exactly: lo is x - hi - mid itself."""
+    x = _split_inputs(kind)
+    hi, mid, lo = split_bf16(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    x64 = x.double()
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x64)
+    assert torch.equal(lo.double(), x64 - hi.double() - mid.double())
+    assert torch.equal(mid.double(), (x64 - hi.double()).to(
+        torch.bfloat16).double())
+    assert bool(torch.isfinite(hi).all())
+
+
+@pytest.mark.parametrize("kind", ["binades", "exp"])
+def test_split_products_equal_float32_products(kind):
+    """With v in bf16, hi v + mid v + lo v (each product exact in
+    float64) is P v: every product equal, and each row's sum (exactly
+    rounded, ``math.fsum``) equal to P v's."""
+    p = _split_inputs(kind).reshape(64, 64)
+    rng = np.random.default_rng(6)
+    v = torch.from_numpy(rng.standard_normal((64, 16)).astype(np.float32)) \
+        .to(torch.bfloat16).double()
+    parts = [t.double()[:, :, None] * v[None] for t in split_bf16(p)]
+    want = p.double()[:, :, None] * v[None]          # [row, k, n]
+    assert torch.equal(parts[0] + parts[1] + parts[2], want)
+    for r in range(0, 64, 9):
+        for n in range(16):
+            got = math.fsum(float(t[r, k, n]) for t in parts
+                            for k in range(64))
+            assert got == math.fsum(want[r, :, n].tolist())
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_wrappers_route_by_dtype(D):
+    """The C entries choose the route by the flag the wrappers pass them:
+    set for bf16 operands (tensor cores), clear for float32 ones (FFMA);
+    the wrappers' checks refuse operands no route takes."""
+    q = torch.zeros(1, 3, 2, 2, D)
+    k = torch.zeros(1, 5, 2, D)
+    for dt, flag in ((torch.bfloat16, 1), (torch.float32, 0)):
+        assert fa._dims(q.to(dt), k.to(dt), True, 0)[8] == flag
+    for qd, kd in ((q.half(), k.half()), (q.bfloat16(), k)):
+        with pytest.raises(ValueError, match="head sizes"):
+            fa._checked(qd, kd, kd)
+    with pytest.raises(ValueError, match="CUDA"):   # no kernel on the CPU
+        fa._checked(q.bfloat16(), k.bfloat16(), k.bfloat16())
