@@ -4,7 +4,8 @@
 Drives the HOBFLOPS CNN inference path at the paper's MobileNets
 14x14x512 width in hobflops9, quantized-weight LM serving at
 qwen2-0.5b's, olmoe-1b-7b's, mamba2-2.7b's and seamless-m4t-medium's
-full width, qwen2-0.5b prefill at 32768 tokens, and LM training at
+full width, jamba-v0.1-52b and internvl2-26b at full width from
+hobflops9 weights, qwen2-0.5b prefill at 32768 tokens, and LM training at
 qwen2-0.5b's full width (on one card and on a one-card device mesh),
 through the entry points a user calls, and holds every hand-written
 CUDA kernel against its plain torch version:
@@ -79,6 +80,27 @@ CUDA kernel against its plain torch version:
    run as smoke twins: decode after prefill against the forward.  Every
    prefill (the enc-dec encoder and cross-attention among them) runs the
    blockwise attention forward kernel;
+7c. serves jamba-v0.1-52b (SSD at 8192 heads of width 1, 16 experts
+   top-2, attention every 8th layer; drawn at its full 32 layers, served
+   at 16 cut from that draw: ``FULL_LAYERS``) and internvl2-26b (512
+   prefix rows, 48
+   layers) at full width from hobflops9 weights that no float32 tree
+   precedes:
+   each leaf is drawn on the card in ``init_params``' order from its
+   CUDA generator and quantized (``quantize_params``' rule, a layer
+   slice at a time, in chunks) before the next is drawn; on both smoke
+   twins that draw must equal ``quantize_params(init_params(...))``
+   bit for bit (every plane word, scale and dense leaf).  Each config:
+   stored bytes, draw seconds and peak, free memory (the draw's and the
+   serve's peak must leave ``FULL_MIN_FREE_GB`` free); ``serve_demo`` at
+   batch 2, 64 prompt tokens, 4 generated (first calls, no warm-up):
+   prefill ms, decode ms a step, tokens/s, peak, launches (the attention
+   forward kernel must be among them); the attention kernel against its
+   plain version on a prefill's first attention layer's bf16 inputs (D
+   128; G 4, or G 6 beside the prefix rows) and on normal draws of their
+   shapes, at step 10a's bounds; one decode step traced (busy share,
+   launches, top kernels); decode after prefill against the forward
+   through the same dequant hook within ``DECODE_TOL``;
 8. trains qwen2-0.5b at full width and depth through ``train_loop``
    (parameters drawn on the card; bf16 compute, float32 parameters and
    moments; sequence 4096, global batch 8 in 4 remat'd micro-batches of
@@ -143,7 +165,8 @@ CUDA kernel against its plain torch version:
 12. prints one JSON ``kernels`` line and, last, the ``ok`` line.
 
 Launch counts are zeroed just before steps 2-3, 3b (its queue, fault
-and burst), 7, 7b, 8, 9b, 10b and 11 and read just after each; they
+and burst), 7, 7b, 7c (each config's ``serve_demo``), 8, 9b, 10b and 11
+and read just after each; they
 count CUDA kernels (the dequant matmul's tensor-core route launches up
 to three a call, the attention backward four; their rows
 also give the calls).
@@ -211,6 +234,33 @@ ENGINE_EOS_AT, ENGINE_SLOTS = 1, 4
 # forward (the reference allows 3e-2; the path difference measured on
 # the CPU is ~1e-6 of the largest logit).
 MOE_TOL, DECODE_TOL = 1e-4, 1e-3
+# Step 7c: jamba-v0.1-52b and internvl2-26b served at full width from
+# hobflops9 weights drawn and quantized leaf by leaf on the card: batch,
+# prompt tokens (internvl2 adds its num_prefix prefix rows) and tokens
+# generated, once each, no warm-up (first-call times).  The draw holds
+# one float32 leaf at a time; QUANT_CHUNK elements of a layer's slice are
+# encoded at a time (quantize's temporaries take ~70 B an element:
+# jamba's draw peaks at 80.18 GB with 2^26-element chunks, 76.65 GB with
+# 2^24, on an H100 80GB HBM3; PERF.md runs K2, K4).  The draw's and each
+# serve's peak must leave FULL_MIN_FREE_GB of the card free.  On the
+# smoke twins, chunks of TWIN_CHUNK elements, the result must equal
+# quantize_params on init_params bit for bit.  The decode-after-prefill
+# check runs at capacity factor FULL_CAPACITY, where the forward drops no
+# token that decode keeps.  jamba is drawn at full depth (59.72 GB
+# stored), then served at FULL_LAYERS layers, the first 2 of the 4
+# repeats of its 8-layer period cut from that draw (every width full):
+# the hook decodes an expert slice (3.76 GB float32) through 8x that in
+# temporaries (30.06 GB on an H100 80GB HBM3, PERF.md run K1) while the
+# two slices before it are held, more than the card holds beside 59.72
+# GB (K1: out of memory at a 78.55 GB peak).  The attention kernel is
+# held to its plain version on the inputs of a prefill's first attention
+# layer and on normal draws of their shape, as step 10a holds it.
+FULL_ARCHS = ("internvl2-26b", "jamba-v0.1-52b")
+FULL_LAYERS = {"jamba-v0.1-52b": 16}
+FULL_BATCH, FULL_PROMPT, FULL_GEN = 2, 64, 4
+FULL_CAPACITY = 8.0
+FULL_MIN_FREE_GB = 4.0
+QUANT_FMT, QUANT_CHUNK, TWIN_CHUNK = "hobflops9", 1 << 24, 4096
 # Step 8: qwen2-0.5b trained at full width and depth.  Sequence 4096 is
 # train_4k's; its global batch of 256 is cut to 8 (micro-batches of 2,
 # accumulated 4 times) for one card and the script's time limit.  Four
@@ -249,8 +299,8 @@ COMPRESS_ROUNDS = 3
 # rounded to bf16) in 40-43% (PERF.md run H1): the bound is a quarter of
 # that.  A 2-term split (no lo) is not seen (0.34-0.71%).  The bf16
 # route's bound is the largest of: the bf16 half-products the function
-# needs a tile pair (FLASH_HALF_PRODUCTS, each 2 D FLOPs a score
-# element; the design issues FLASH_ISSUED, printed beside) at
+# needs a tile pair (launch/cost.py's FLASH_HALF_PRODUCTS, each 2 D
+# FLOPs a score element; the design issues FLASH_ISSUED, printed beside) at
 # BF16_FLOPS_A_CLOCK an SM at the SM clock, as the exp and FFMA peaks
 # (the data sheet's 989 TFLOP/s is at 1830 MHz; printed beside); one exp
 # a causal score element at EXP_PER_SM a cycle an SM; the bytes at
@@ -273,7 +323,6 @@ FLASH_BITS_OFF = 0.1
 BF16_FLOPS_A_CLOCK = 4096      # dense bf16 wgmma FLOPs a clock an SM
 BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16
 EXP_PER_SM = 16                # MUFU exp2 results per clock per SM
-FLASH_HALF_PRODUCTS = {"fwd": 4, "bwd": 11}
 FLASH_ISSUED = {"fwd": 4, "bwd": 13}
 FLASH_F32_CASE, FLASH_F32_TOL = (2, 300, 300, 2, 7, 64), (1e-5, 1e-4)
 STEP8_D8 = {"step_ms": 3849.9, "peak_gb": 41.88}
@@ -437,6 +486,30 @@ def bits(t):
 
 def same_bits(a, b) -> bool:
     return a.shape == b.shape and bool((bits(a) == bits(b)).all())
+
+
+def held(name, got, want, tol):
+    """The largest error of ``got`` against the plain version's
+    ``want``, which must be at most ``tol`` of ``want``'s largest
+    magnitude, in the same shape and type."""
+    top = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    require(got.shape == want.shape and got.dtype == want.dtype
+            and err <= tol * top,
+            f"{name}: {err:.3e} against the plain version's largest "
+            f"{top:.3e} (bound {tol} of it)")
+    return err
+
+
+def bits_held(name, got, want):
+    """The share of ``got``'s bf16 elements whose bits differ from the
+    plain version's; at most ``FLASH_BITS_OFF``."""
+    as16 = lambda t: t.contiguous().view(torch.int16)  # noqa: E731
+    off = float((as16(got) != as16(want)).float().mean())
+    require(off <= FLASH_BITS_OFF,
+            f"{name}: {off:.4%} of the elements differ from the plain "
+            f"version's in their bits (bound {FLASH_BITS_OFF})")
+    return off
 
 
 def he_kernels(rng, shape):
@@ -897,6 +970,9 @@ def main() -> int:
     lm_families_phase(args.seed, dev)
     print(f"step 7b wall time: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    full_width_phase(args.seed, dev, card)
+    print(f"step 7c wall time: {time.perf_counter() - t0:.1f} s ({card})")
+    t0 = time.perf_counter()
     step8 = train_phase(args.seed, dev, card)
     print(f"step 8 wall time: {time.perf_counter() - t0:.1f} s ({card})")
     t0 = time.perf_counter()
@@ -1115,8 +1191,6 @@ def trace_lm_steps(cfg, params, deq, seed: int, dev, steps: int = 3):
     ``torch.profiler``: for each phase the host time (synchronised), the
     device's busy time, the kernel launches and the kernels with the
     most device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.serve.steps import make_decode_step, make_prefill_step
     gen = torch.Generator().manual_seed(seed)
     prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
@@ -1127,27 +1201,33 @@ def trace_lm_steps(cfg, params, deq, seed: int, dev, steps: int = 3):
     tok, lg, cache = step(params, lg.argmax(-1).to(torch.int32), length,
                           cache)                          # warm
     torch.cuda.synchronize()
-    out = {}
-    for phase, n in (("prefill", 1), ("decode", steps)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(n):
-                if phase == "prefill":
-                    prefill(params, {"tokens": prompt})
-                else:
-                    tok, lg, cache = step(params, tok, length + 1 + i,
-                                          cache)
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3 / n
-        kern = [(device_time_us(e) / 1e3 / n, e.count / n, e.key)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        out[phase] = {"host_ms": host_ms,
-                      "busy_ms": sum(k[0] for k in kern),
-                      "launches": sum(k[1] for k in kern),
-                      "top": sorted(kern, reverse=True)[:4]}
-    return out
+
+    def decode_steps():
+        nonlocal tok, lg, cache
+        for i in range(steps):
+            tok, lg, cache = step(params, tok, length + 1 + i, cache)
+    return {"prefill": profile_calls(
+                lambda: prefill(params, {"tokens": prompt}), 1),
+            "decode": profile_calls(decode_steps, steps)}
+
+
+def profile_calls(fn, n: int) -> dict:
+    """``fn()`` (``n`` steps of work) under ``torch.profiler``: a step's
+    host time (synchronised), the device's busy time, the kernel
+    launches and the four kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
+    kern = [(device_time_us(e) / 1e3 / n, e.count / n, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"host_ms": host_ms, "busy_ms": sum(k[0] for k in kern),
+            "launches": sum(k[1] for k in kern),
+            "top": sorted(kern, reverse=True)[:4]}
 
 
 def lm_phase(seed: int, dev) -> dict:
@@ -1299,32 +1379,36 @@ def full_init(cfg, seed: int, dev):
     return params
 
 
-def decode_against_forward(cfg, params, batch: dict, dev) -> float:
+def decode_against_forward(cfg, params, batch: dict, dev,
+                           deq=None) -> float:
     """At float32 compute: ``decode_step`` of the last token after a
     ``prefill`` of the others against ``forward_logits`` at that
     position, and the prefill's own last logits against the position
-    before.  Returns the larger error as a share of the largest logit,
-    which must be at most ``DECODE_TOL``."""
+    before, all three through the dequant hook ``deq`` when given.
+    Returns the larger error as a share of the largest logit, which must
+    be at most ``DECODE_TOL``."""
     from repro_torch.models import decode_step, forward_logits, prefill
     cfg = dataclasses.replace(cfg, compute_dtype="float32")
     torch.backends.cuda.matmul.allow_tf32 = False
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    full, _ = forward_logits(params, batch, cfg)
+    full, _ = forward_logits(params, batch, cfg, deq=deq)
     cache, lg_pre, length = prefill(
         params, dict(batch, tokens=tokens[:, :S - 1]), cfg,
-        S + cfg.num_prefix, dtype=torch.float32)
-    lg_dec, _ = decode_step(params, tokens[:, S - 1], cache, length, cfg)
+        S + cfg.num_prefix, dtype=torch.float32, deq=deq)
+    lg_dec, _ = decode_step(params, tokens[:, S - 1], cache, length, cfg,
+                            deq=deq)
     top = float(full[:, -2:].abs().max())
     err = max(float((lg_dec - full[:, -1]).abs().max()),
               float((lg_pre - full[:, -2]).abs().max())) / top
     require(bool(torch.isfinite(full).all()) and err <= DECODE_TOL,
             f"{cfg.name}: decode after prefill against the forward: "
             f"{err:.3e} of the largest logit {top:.3f}, bound {DECODE_TOL}")
-    print(f"{cfg.name} float32 compute, {S - 1}-token prefill + decode_step "
-          f"against forward_logits at position {S - 1} (and prefill's last "
-          f"logits at {S - 2}): max err {err:.3e} of the largest logit "
-          f"{top:.3f} (bound {DECODE_TOL})")
+    print(f"{cfg.name} float32 compute{', hobflops9 weights' if deq else ''}"
+          f", {S - 1}-token prefill + decode_step against forward_logits at "
+          f"position {S - 1} (and prefill's last logits at {S - 2}): max "
+          f"err {err:.3e} of the largest logit {top:.3f} (bound "
+          f"{DECODE_TOL})")
     return err
 
 
@@ -1468,6 +1552,340 @@ def lm_families_phase(seed: int, dev) -> None:
     require(launches["flash_fwd"] > 0,
             f"step 7b's prefills did not launch the attention kernel: "
             f"{launches}")
+
+
+def _nest(path, leaf):
+    for k in reversed(path):
+        leaf = {k: leaf}
+    return leaf
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _schema_paths(tree, path=()):
+    """(path, leaf) of a schema in ``init_params``' sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _schema_paths(tree[k], path + (k,))]
+    return [(path, tree)]
+
+
+def quantize_slice(w, sfmt, data, scale, chunk: int) -> None:
+    """``quantize(w, sfmt, layout="bitplane")`` into ``data`` [nbits,
+    n/32] and the 0-d ``scale``, ``chunk`` elements of ``w`` at a time
+    (a multiple of 32: a chunk's codes fill whole lane words).  The
+    scale is quantize's own, from the largest magnitude of the flushed
+    weights, taken over the chunks; each chunk then goes through
+    ``quantize`` with that scale."""
+    from repro_torch.core.softfloat import flush_subnormal
+    from repro_torch.quant.storage import quantize
+    flat = w.reshape(-1)
+    n = flat.numel()
+    amax = torch.stack([flush_subnormal(flat[i:i + chunk]).abs().max()
+                        for i in range(0, n, chunk)]).max()
+    sc = torch.clamp(amax, min=1e-30) / 2.0 ** (sfmt.emax - sfmt.bias - 1)
+    for i in range(0, n, chunk):
+        q = quantize(flat[i:i + chunk], sfmt, layout="bitplane", scale=sc)
+        data[:, i // 32:i // 32 + q.data.shape[1]] = q.data
+    scale.copy_(q.scale)
+
+
+def quantized_init(cfg, seed: int, dev, chunk: int = QUANT_CHUNK):
+    """``quantize_params(init_params(schema, Generator(dev).manual_seed(
+    seed), dev), cfg, QUANT_FMT)`` without the float32 tree: each leaf is
+    drawn by ``init_params``' own ``_leaf_init`` in its order from the
+    same generator, and a weight that ``quantize_params`` stores in
+    planes (its rule, asked on a meta tensor of the leaf's shape) is
+    quantized layer slice by slice (``quantize_slice``) into the planes
+    and scales it would make, before the next leaf is drawn.  Returns
+    (the tree, the bytes of planes and scales, the bytes kept dense)."""
+    from repro_torch._build import synchronize
+    from repro_torch.models import model_schema
+    from repro_torch.models.schema import _leaf_init
+    from repro_torch.quant.apply import quantize_params
+    from repro_torch.quant.storage import QuantizedTensor
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tree, planes, dense = {}, 0, 0
+    for path, p in _schema_paths(model_schema(cfg)):
+        w = _leaf_init(p, gen, torch.float32, dev)
+        shape, _ = quantize_params(
+            _nest(path, torch.empty(p.shape, device="meta")), cfg, QUANT_FMT)
+        q = _at(shape, path)
+        if isinstance(q, QuantizedTensor):
+            data = torch.empty(q.data.shape, dtype=q.data.dtype, device=dev)
+            scale = torch.empty(q.scale.shape, dtype=q.scale.dtype,
+                                device=dev)
+            if data.ndim == 2:
+                quantize_slice(w, q.sfmt, data, scale, chunk)
+            for i in range(data.shape[0] if data.ndim == 3 else 0):
+                quantize_slice(w[i], q.sfmt, data[i], scale[i], chunk)
+            w = dataclasses.replace(q, data=data, scale=scale)
+            planes += data.numel() * 4 + scale.numel() * 4
+        else:
+            dense += w.numel() * w.element_size()
+        sub = tree
+        for k in path[:-1]:
+            sub = sub.setdefault(k, {})
+        sub[path[-1]] = w
+        del w
+    synchronize(torch.device(dev))
+    return tree, planes, dense
+
+
+def same_quantized(a, b, where: str = "") -> None:
+    """Two parameter trees equal leaf by leaf: a quantized leaf's planes
+    and scales and a dense leaf's values bit for bit, shapes and
+    formats too."""
+    from repro_torch.quant.storage import QuantizedTensor
+    if isinstance(a, dict):
+        require(isinstance(b, dict) and sorted(a) == sorted(b),
+                f"{where}: keys differ")
+        for k in a:
+            same_quantized(a[k], b[k], f"{where}/{k}")
+        return
+    if isinstance(a, QuantizedTensor):
+        require(isinstance(b, QuantizedTensor) and a.shape == b.shape
+                and a.sfmt == b.sfmt and a.layout == b.layout
+                and a.data.shape == b.data.shape
+                and a.scale.shape == b.scale.shape, f"{where}: layout")
+        require(torch.equal(a.data, b.data), f"{where}: planes differ")
+        require(same_bits(a.scale, b.scale), f"{where}: scales differ")
+        return
+    require(a.shape == b.shape and same_bits(a, b),
+            f"{where}: dense leaf differs")
+
+
+def free_margin(what: str, free0: int, held0: int) -> float:
+    """GB the card had free at the peak since the last reset: what was
+    free or held by this process's allocator (``free0``, ``held0``)
+    before, less the peak allocated.  At least ``FULL_MIN_FREE_GB``."""
+    margin = (free0 + held0 - torch.cuda.max_memory_allocated()) / 1e9
+    require(margin >= FULL_MIN_FREE_GB,
+            f"{what}: {margin:.2f} GB of the card free at the peak, below "
+            f"{FULL_MIN_FREE_GB} GB")
+    return margin
+
+
+def full_draw(cfg, seed: int, dev, card: str):
+    """``quantized_init`` of ``cfg`` on an empty card; prints its stored
+    bytes, seconds, peak and the free memory before, at the peak and
+    after, and returns the tree."""
+    from repro_torch.models import model_schema
+    from repro_torch.models.schema import param_count
+    torch.cuda.reset_peak_memory_stats()
+    free0, total = torch.cuda.mem_get_info()
+    held0 = torch.cuda.memory_reserved()
+    alloc0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, planes, dense = quantized_init(cfg, seed, dev)
+    init_s = time.perf_counter() - t0
+    free1, _ = torch.cuda.mem_get_info()
+    margin = free_margin(f"{cfg.name} draw", free0, held0)
+    n = param_count(model_schema(cfg))
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n} "
+          f"parameters ({n * 4 / 1e9:.1f} GB float32): drawn and quantized "
+          f"to {QUANT_FMT} leaf by leaf on the card in {init_s:.1f} s; "
+          f"stored {planes / 1e9:.3f} GB of planes and scales + "
+          f"{dense / 1e9:.3f} GB dense = {(planes + dense) / 1e9:.3f} GB; "
+          f"peak of the draw {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"GB allocated, {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
+          f"reserved ({alloc0 / 1e9:.2f} GB allocated before); free "
+          f"{free0 / 1e9:.2f} -> {free1 / 1e9:.2f} of "
+          f"{total / 1e9:.2f} GB, {margin:.2f} GB at the peak (at least "
+          f"{FULL_MIN_FREE_GB}) ({card})")
+    return params
+
+
+def _layout(tree):
+    """A parameter tree's leaves as their storage shapes."""
+    from repro_torch.quant.storage import QuantizedTensor
+    if isinstance(tree, dict):
+        return {k: _layout(v) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        return (tree.layout, tree.shape, tuple(tree.data.shape),
+                tuple(tree.scale.shape))
+    return tuple(tree.shape)
+
+
+def keep_repeats(params, cut) -> None:
+    """``params`` cut in place to ``cut``'s depth: each stacked leaf of
+    ``params["blocks"]`` keeps its first repeats, copied, and its full
+    leaf is freed before the next is cut.  The tree's layout must then
+    be the one ``quantize_params`` gives ``cut``."""
+    from repro_torch.models import model_schema
+    from repro_torch.models.schema import abstract_params
+    from repro_torch.quant.apply import quantize_params
+    from repro_torch.quant.storage import QuantizedTensor
+    schema = model_schema(cut)
+    n = _schema_paths(schema["blocks"])[0][1].shape[0]
+    for path, _ in _schema_paths(schema["blocks"]):
+        sub = _at(params["blocks"], path[:-1])
+        w = sub.pop(path[-1])
+        if isinstance(w, QuantizedTensor):
+            sub[path[-1]] = dataclasses.replace(
+                w, data=w.data[:n].clone(), scale=w.scale[:n].clone())
+        else:
+            sub[path[-1]] = w[:n].clone()
+        del w
+    want, _ = quantize_params(abstract_params(schema), cut, QUANT_FMT)
+    require(_layout(params) == _layout(want),
+            f"{cut.name} cut to {cut.n_layers} layers: not its layout")
+
+
+def flash_on_path(name, q, k, v, kw, gen) -> str:
+    """``flash_fwd_cuda`` against ``flash_fwd_ref`` on a prefill's
+    attention inputs and on normal draws of their shapes: o within
+    ``FLASH_TOL`` of the plain version's largest value, lse within 1e-6,
+    at most ``FLASH_BITS_OFF`` of o's elements not bit-equal.  Returns
+    the readings as text."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+    require(q.dtype == torch.bfloat16 and kw["causal"],
+            f"{name}: attention inputs {q.dtype}, {kw}")
+    drawn = [torch.randn(t.shape, generator=gen, device=t.device).to(t.dtype)
+             for t in (q, k, v)]
+    out = []
+    for what, (qq, kk, vv) in (("inputs", (q, k, v)), ("draws", drawn)):
+        o, lse = fa.flash_fwd_cuda(qq, kk, vv, **kw)
+        ro, rl = flash_fwd_ref(qq, kk, vv, **kw)
+        err = held(f"{name} o on the {what}", o, ro, FLASH_TOL)
+        lerr = held(f"{name} lse on the {what}", lse, rl, 1e-6)
+        off = bits_held(f"{name} o on the {what}", o, ro)
+        out.append(f"{what}: o max err {err:.3e}, lse {lerr:.3e}, "
+                   f"{off:.4%} not bit-equal")
+    B, S, Hkv, G, D = q.shape
+    return (f"B {B}, S {S}, Hkv {Hkv}, G {G}, D {D}, bf16, causal; "
+            + "; ".join(out) + f" (bounds {FLASH_TOL} of the largest o, "
+            f"1e-6 of the largest lse, {FLASH_BITS_OFF:.0%} of o)")
+
+
+def full_width_phase(seed: int, dev, card: str) -> None:
+    """Step 7c: ``FULL_ARCHS`` at full width from hobflops9 weights.
+    First the leaf-by-leaf draw against the two-pass path on each smoke
+    twin, bit for bit; then each config drawn and quantized on the card
+    (``quantized_init``; jamba at full depth, then cut to
+    ``FULL_LAYERS``), served by ``serve_demo`` (first calls), one decode
+    step traced after a prefill whose first attention layer's inputs
+    hold the kernel to its plain version, and decode after prefill held
+    to the forward through the same dequant hook."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import serve_demo
+    from repro_torch.models import model_schema
+    from repro_torch.models.schema import init_params
+    from repro_torch.quant.apply import make_deq, quantize_params
+    from repro_torch.serve.steps import make_decode_step, make_prefill_step
+
+    for name in FULL_ARCHS:
+        cfg = smoke_config(name)
+        two, _ = quantize_params(init_params(
+            model_schema(cfg), torch.Generator(device=dev).manual_seed(seed),
+            dev), cfg, QUANT_FMT)
+        one, planes, dense = quantized_init(cfg, seed, dev, TWIN_CHUNK)
+        same_quantized(two, one, cfg.name)
+        print(f"{cfg.name}: drawn and quantized leaf by leaf ({TWIN_CHUNK}-"
+              f"element chunks) == quantize_params(init_params(...)), every "
+              f"plane word, scale and dense leaf bit for bit ({planes} B of "
+              f"planes and scales, {dense} B dense)")
+        del two, one
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    for name in FULL_ARCHS:
+        t_step = time.perf_counter()
+        cfg = get_config(name)
+        params = full_draw(cfg, seed, dev, card)
+        if name in FULL_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=FULL_LAYERS[name])
+            keep_repeats(params, cfg)
+            torch.cuda.empty_cache()
+            print(f"{name} served at {cfg.n_layers} of "
+                  f"{get_config(name).n_layers} layers, the first repeats "
+                  f"of its period cut from the draw, every width full: "
+                  f"decoding an expert slice needs 8x its float32 bytes "
+                  f"beside the full depth's stored weights; "
+                  f"{torch.cuda.memory_allocated() / 1e9:.3f} GB held")
+
+        torch.cuda.reset_peak_memory_stats()
+        free0, _ = torch.cuda.mem_get_info()
+        held0 = torch.cuda.memory_reserved()
+        zero_launches()
+        st = {}
+        serve_demo(cfg, batch=FULL_BATCH, prompt_len=FULL_PROMPT,
+                   gen_len=FULL_GEN, quant=QUANT_FMT, seed=seed,
+                   params=params, device=dev, stats=st,
+                   print_fn=lambda m: None)
+        launches = kernel_launches()
+        margin = free_margin(f"{cfg.name} serve_demo", free0, held0)
+        require(bool(torch.isfinite(st["logits"]).all()),
+                f"{cfg.name} serve_demo: logits not finite")
+        require(st["logits"].shape == (FULL_GEN, FULL_BATCH,
+                                       cfg.vocab_padded),
+                f"{cfg.name} serve_demo: logits "
+                f"{tuple(st['logits'].shape)}")
+        require(launches["flash_fwd"] > 0,
+                f"{cfg.name}: the prefill did not launch the attention "
+                f"kernel: {launches}")
+        print(f"serve_demo {cfg.name}, {QUANT_FMT} weights, batch "
+              f"{FULL_BATCH}, prompt {FULL_PROMPT}"
+              f"{f' + {cfg.num_prefix} prefix rows' if cfg.num_prefix else ''}"
+              f", {FULL_GEN} tokens, first calls (no warm-up): prefill "
+              f"{st['prefill_ms']:.1f} ms, decode "
+              f"{st['decode_ms_per_step']:.1f} ms/step, {st['tok_s']:.3f} "
+              f"tok/s; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+              f"GB, {margin:.2f} GB free at the peak; launches {launches} "
+              f"({card})")
+
+        # A prefill of a new prompt, its first attention layer's inputs
+        # kept; one decode step after it traced.
+        batch = {"tokens": torch.randint(0, cfg.vocab, (FULL_BATCH,
+                                                        FULL_PROMPT),
+                                         generator=gen, device=dev)}
+        if cfg.num_prefix:
+            batch["prefix"] = torch.randn(
+                (FULL_BATCH, cfg.num_prefix, cfg.frontend_dim),
+                generator=gen, device=dev)
+        deq = make_deq()
+        prefill = make_prefill_step(cfg, FULL_PROMPT + cfg.num_prefix + 1,
+                                    deq=deq)
+        step = make_decode_step(cfg, deq=deq)
+        kernel_fn, first = fa_ops.flash_fwd_cuda, []
+
+        def keep_first(q, k, v, **kw):
+            if not first:
+                first.append((q, k, v, kw))
+            return kernel_fn(q, k, v, **kw)
+        fa_ops.flash_fwd_cuda = keep_first
+        try:
+            cache, lg, length = prefill(params, batch)
+        finally:
+            fa_ops.flash_fwd_cuda = kernel_fn
+        require(bool(first), f"{cfg.name}: no attention in the prefill")
+        print(f"step 7c {cfg.name} attention kernel against its plain "
+              f"version at the prefill's first attention layer: "
+              f"{flash_on_path(f'step 7c {cfg.name}', *first[0], gen)}")
+        del first
+        tok = lg.argmax(-1).to(torch.int32)
+        tr = profile_calls(lambda: step(params, tok, length, cache), 1)
+        print(f"traced {cfg.name} {QUANT_FMT} decode step (batch "
+              f"{FULL_BATCH}, after a {FULL_PROMPT}-token prefill): host "
+              f"{tr['host_ms']:.1f} ms, device busy {tr['busy_ms']:.1f} ms "
+              f"({100 * tr['busy_ms'] / tr['host_ms']:.1f}%), "
+              f"{tr['launches']:.0f} kernel launches ({card})")
+        for ms, k, kname in tr["top"]:
+            print(f"    {ms:8.3f} ms {k:6.0f}x  {kname[:90]}")
+        del cache, lg, tok
+
+        wide = dataclasses.replace(cfg, moe_capacity_factor=FULL_CAPACITY)
+        decode_against_forward(wide, params, batch, dev, deq=deq)
+        del params, batch
+        torch.cuda.empty_cache()
+        print(f"step 7c {cfg.name} wall time: "
+              f"{time.perf_counter() - t_step:.1f} s ({card})")
 
 
 def remat_check(cfg, params, seed: int, dev) -> float:
@@ -1818,6 +2236,7 @@ def flash_phase(seed: int, dev, card: str, params: dict) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (flash_bwd_ref,
                                                          flash_fwd_ref)
+    from repro_torch.launch.cost import FLASH_HALF_PRODUCTS
     from repro_torch.serve.steps import make_prefill_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1869,25 +2288,6 @@ def flash_phase(seed: int, dev, card: str, params: dict) -> dict:
                 f"{bd['tensor_issued'] / ms:.3f}; f32 FFMA bound "
                 f"{bd['ffma']:.3f} ms, share {bd['ffma'] / ms:.3f}")
 
-    def held(name, got, want, tol):
-        top = float(want.float().abs().max())
-        err = float((got.float() - want.float()).abs().max())
-        require(got.shape == want.shape and got.dtype == want.dtype
-                and err <= tol * top,
-                f"step 10a {name}: {err:.3e} against the plain version's "
-                f"largest {top:.3e} (bound {tol} of it)")
-        return err
-
-    def bits_held(name, got, want):
-        """The share of ``got``'s bf16 elements whose bits differ from
-        the plain version's; at most ``FLASH_BITS_OFF``."""
-        as16 = lambda t: t.contiguous().view(torch.int16)
-        off = float((as16(got) != as16(want)).float().mean())
-        require(off <= FLASH_BITS_OFF,
-                f"step 10a {name}: {off:.4%} of the elements differ from the "
-                f"plain version's in their bits (bound {FLASH_BITS_OFF})")
-        return off
-
     # -- 10a. at step 8's attention shape, forward and backward ---------
     print(f"step 10a: blockwise attention ({card}); bf16 tensor cores "
           f"{n_sm} SMs x {BF16_FLOPS_A_CLOCK} x {clock_mhz:.0f} MHz = "
@@ -1904,12 +2304,12 @@ def flash_phase(seed: int, dev, card: str, params: dict) -> dict:
     ro, rl = flash_fwd_ref(q, k, v, **kw)
     want = flash_bwd_ref(do, q, k, v, ro, rl, **kw)
     torch.cuda.synchronize()
-    err = held("o", o, ro, FLASH_TOL)
-    held("lse", lse, rl, 1e-6)
-    gerr = {n: held(f"d{n}", a, b, FLASH_TOL)
+    err = held("step 10a o", o, ro, FLASH_TOL)
+    held("step 10a lse", lse, rl, 1e-6)
+    gerr = {n: held(f"step 10a d{n}", a, b, FLASH_TOL)
             for n, a, b in zip("qkv", grads, want)}
-    bits_off = {"o": bits_held("o", o, ro)}
-    bits_off.update({f"d{n}": bits_held(f"d{n}", a, b)
+    bits_off = {"o": bits_held("step 10a o", o, ro)}
+    bits_off.update({f"d{n}": bits_held(f"step 10a d{n}", a, b)
                      for n, a, b in zip("qkv", grads, want)})
     o2, lse2 = fa.flash_fwd_cuda(q, k, v, **kw)
     grads2 = fa.flash_bwd_cuda(do, q, k, v, o, lse, **kw)
@@ -1971,9 +2371,10 @@ def flash_phase(seed: int, dev, card: str, params: dict) -> dict:
     ro, rl = flash_fwd_ref(q, k, v, **kw)
     want = flash_bwd_ref(do, q, k, v, ro, rl, **kw)
     torch.cuda.synchronize()
-    f32_err = held("float32 o", o, ro, FLASH_F32_TOL[0])
-    held("float32 lse", lse, rl, 1e-6)
-    f32_gerr = max(held(f"float32 d{n}", a, b, FLASH_F32_TOL[1])
+    f32_err = held("step 10a float32 o", o, ro, FLASH_F32_TOL[0])
+    held("step 10a float32 lse", lse, rl, 1e-6)
+    f32_gerr = max(held(f"step 10a float32 d{n}", a, b,
+                            FLASH_F32_TOL[1])
                    for n, a, b in zip("qkv", grads, want))
     print(f"step 10a float32 route (FFMA) at B {fb}, Sq {fsq}, Sk {fsk}, "
           f"Hkv {fhkv}, G {fg}, D {fd}, causal: max abs err o "
@@ -1987,9 +2388,9 @@ def flash_phase(seed: int, dev, card: str, params: dict) -> dict:
     o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
     (ro, rl), plain_long_ms = time_event(
         lambda: flash_fwd_ref(q, k, v, **kw))
-    err_long = held(f"o at {FLASH_LONG}", o, ro, FLASH_TOL)
-    held(f"lse at {FLASH_LONG}", lse, rl, 1e-6)
-    bits_off["o_32k"] = bits_held(f"o at {FLASH_LONG}", o, ro)
+    err_long = held(f"step 10a o at {FLASH_LONG}", o, ro, FLASH_TOL)
+    held(f"step 10a lse at {FLASH_LONG}", lse, rl, 1e-6)
+    bits_off["o_32k"] = bits_held(f"step 10a o at {FLASH_LONG}", o, ro)
     del ro, rl
     long_ms = median_device_ms(lambda: fa.flash_fwd_cuda(q, k, v, **kw),
                                reps=5, warm=1)

@@ -100,7 +100,10 @@ def shard_local(fn, tensors, axes, out_like=(0,), partial_of=None):
     alone.  On DTensors under installed rules it runs on the local
     shards (``local_map``): tensor ``i`` is laid out by its logical
     ``axes[i]``, and result ``j`` takes the layout of tensor
-    ``out_like[j]`` (one result when ``out_like`` has one entry).  With
+    ``out_like[j]`` (one result when ``out_like`` has one entry).  An
+    entry ``(i, dims)`` gives a result whose dim ``k`` is split as dim
+    ``dims[k]`` of tensor ``i`` (``None``: a dim no input carries; a
+    split dim of tensor ``i`` must appear in ``dims``).  With
     ``partial_of = (i, d)``, the mesh axes that split dim ``d`` of
     tensor ``i`` hold partial sums of the results (a contraction over a
     split dim).  A plain tensor among ``tensors`` is taken as
@@ -118,7 +121,8 @@ def shard_local(fn, tensors, axes, out_like=(0,), partial_of=None):
         t, mesh, [Replicate()] * mesh.ndim, run_check=False)
         for t in tensors]
     ins = tuple(_layout(mesh, a, t.shape) for a, t in zip(axes, tensors))
-    outs = [list(ins[i]) for i in out_like]
+    outs = [list(ins[o]) if isinstance(o, int) else _moved(ins[o[0]], o[1])
+            for o in out_like]
     if partial_of is not None:
         i, d = partial_of
         for m, pl in enumerate(ins[i]):
@@ -133,6 +137,13 @@ def shard_local(fn, tensors, axes, out_like=(0,), partial_of=None):
                      out_placements=tuple(tuple(o) for o in outs),
                      in_placements=ins, in_grad_placements=grads,
                      device_mesh=mesh, redistribute_inputs=True)(*tensors)
+
+
+def _moved(pl, dims) -> list:
+    """Placements ``pl`` of an input, for a result whose dim ``k`` is the
+    input's dim ``dims[k]``."""
+    return [Shard(dims.index(p.dim)) if isinstance(p, Shard) else p
+            for p in pl]
 
 
 class _RowMajorGrad(torch.autograd.Function):

@@ -24,9 +24,11 @@ Per local op:
   flops      — matmul and convolution FLOPs by the formulas of
                ``torch.utils.flop_counter.FlopCounterMode`` (its
                ``flop_registry``); ``flops_by_dtype`` splits them by
-               the operands' dtype, ``tf32`` for float32 operands while
+               the type they run in, ``tf32`` for float32 operands while
                TF32 is allowed (``torch.backends``' flags at dispatch),
-               since each type runs at its own peak
+               since each type runs at its own peak; the bf16 blockwise
+               attention's entry counts the half-products its kernels
+               need (``FLASH_HALF_PRODUCTS``), more than its formula
   elem_flops — elementwise and reduction work, kept apart as
                ``hlo_cost`` folds it into its flops: the output elements
                of a pointwise op, the input elements of a reduction,
@@ -92,19 +94,34 @@ def _tensors(tree) -> list:
     return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
 
-def _flop_kind(name: str, dtype) -> str:
-    """The type a matmul or convolution runs in: its operands' dtype, or
-    ``tf32`` for float32 operands while TF32 is allowed for it.  The
-    blockwise attention ops (``flash_fwd``/``flash_bwd``) compute in
-    float32 FMAs whatever their operands' type."""
+# The blockwise attention ops on bf16 inputs run on the tensor cores,
+# each float32 product of the FLOP formula split exactly into bf16
+# half-products.  A score element takes FLASH_HALF_PRODUCTS of them:
+# forward 4 for the formula's 2 products, backward 11 for its 4 (the
+# kernels recompute the scores, a fifth product).
+FLASH_HALF_PRODUCTS = {"fwd": 4, "bwd": 11}
+_FLASH_FORMULA_PRODUCTS = {"fwd": 2, "bwd": 4}
+
+
+def _flop_kind(name: str, dtype) -> tuple[str, float]:
+    """The type a matmul or convolution runs in, and its FLOPs in that
+    type as a multiple of the formula's.  The type is the operands'
+    dtype, or ``tf32`` for float32 operands while TF32 is allowed for
+    it.  The blockwise attention ops (``flash_fwd``/``flash_bwd``) run
+    bf16 inputs on the tensor cores, over ``FLASH_HALF_PRODUCTS``, and
+    float32 ones in float32 FMAs, TF32 or not."""
     if name in ("flash_fwd", "flash_bwd"):
-        return "float32"
+        if dtype != torch.bfloat16:
+            return "float32", 1.0
+        which = name.removeprefix("flash_")
+        return "bfloat16", (FLASH_HALF_PRODUCTS[which]
+                            / _FLASH_FORMULA_PRODUCTS[which])
     if dtype == torch.float32:
         conv = "convolution" in name
         if (torch.backends.cudnn.allow_tf32 if conv
                 else torch.backends.cuda.matmul.allow_tf32):
-            return "tf32"
-    return str(dtype).removeprefix("torch.")
+            return "tf32", 1.0
+    return str(dtype).removeprefix("torch."), 1.0
 
 
 def _nbytes(ts) -> int:
@@ -179,8 +196,9 @@ class CostMode(TorchDispatchMode):
         if packet in flop_registry:
             f = flop_registry[packet](*args, **kwargs, out_val=out)
             c.flops += f
-            kind = _flop_kind(name, ins[0].dtype)
-            c.flops_by_dtype[kind] = c.flops_by_dtype.get(kind, 0) + f
+            kind, times = _flop_kind(name, ins[0].dtype)
+            c.flops_by_dtype[kind] = (c.flops_by_dtype.get(kind, 0)
+                                      + f * times)
         elif torch.Tag.pointwise in func.tags:
             c.elem_flops += sum(t.numel() for t in outs)
         elif name in _REDUCE:

@@ -21,7 +21,7 @@ from repro_torch._build import resolve_device
 from repro_torch.distributed.ctx import constrain, shard_local
 
 from .config import ModelConfig
-from .layers import rmsnorm, weight_getter
+from .layers import weight_getter
 from .schema import P
 
 
@@ -133,21 +133,22 @@ def mamba_init_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
 
 
 def _split_proj(cfg: ModelConfig, zxbcdt):
+    """``in_proj``'s output [..., d_in] as (z, x, BC, dt): the gate, the
+    SSD input, the B and C columns and the raw step sizes."""
     di, N, H = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads
-    conv_dim = di + 2 * N
-    z = zxbcdt[..., :di]
-    xBC = zxbcdt[..., di:di + conv_dim]
-    dt = zxbcdt[..., di + conv_dim:]
-    if dt.shape[-1] != H:
-        raise ValueError(f"in_proj gives {dt.shape[-1]} dt columns for "
-                         f"{H} heads")
-    return z, xBC, dt
+    if zxbcdt.shape[-1] != 2 * di + 2 * N + H:
+        raise ValueError(f"in_proj gives {zxbcdt.shape[-1]} columns for "
+                         f"d_inner {di}, state {N} and {H} heads")
+    return (zxbcdt[..., :di], zxbcdt[..., di:2 * di],
+            zxbcdt[..., 2 * di:2 * di + 2 * N], zxbcdt[..., 2 * di + 2 * N:])
 
 
 def _ssd_inputs(cfg: ModelConfig, dt_bias, A_log, xBC, dt):
-    """Post-conv xBC + raw dt -> f32 (x [.., H, P], dA, Bm, Cm, dt_sp)."""
-    di, N, H, Pd = (cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads,
-                    cfg.ssm_headdim)
+    """Post-conv xBC + raw dt of a rank's heads (all of them off a mesh)
+    -> f32 (x [.., H, P], dA, Bm, Cm, dt_sp)."""
+    N, Pd = cfg.ssm_state, cfg.ssm_headdim
+    H = dt.shape[-1]
+    di = H * Pd
     x = xBC[..., :di].to(torch.float32)
     Bm = xBC[..., di:di + N].to(torch.float32)
     Cm = xBC[..., di + N:].to(torch.float32)
@@ -158,52 +159,112 @@ def _ssd_inputs(cfg: ModelConfig, dt_bias, A_log, xBC, dt):
     return x, dA, Bm, Cm, dt_sp
 
 
-# The small parameters of the mixer body, in :func:`_mix`'s order.
-_BODY = ("conv_w", "conv_b", "dt_bias", "A_log", "D", "norm")
-_BODY_AXES = ((None, None),) + ((None,),) * 5
+def _blocks(cfg: ModelConfig, zxbcdt):
+    """(z, x, BC, dt) of ``zxbcdt`` [..., d_in] in their own layouts: z,
+    x and dt split by head (``"ssm"``), BC whole.  A column shard of the
+    concatenation does not hold whole heads (the split falls where the
+    block sizes put it), so on a mesh the activation is first gathered
+    whole over the model axis; the split blocks are then local slices."""
+    lead = ("batch",) + (None,) * (zxbcdt.ndim - 2)
+    z, x, bc, dt = _split_proj(cfg, constrain(zxbcdt, *lead, None))
+    return (constrain(z, *lead, "ssm"), constrain(x, *lead, "ssm"), bc,
+            constrain(dt, *lead, "ssm"))
+
+
+def _conv_split(cfg: ModelConfig, t, lead):
+    """A tensor over the conv channels ``x | B | C`` (last dim; ``lead``
+    the logical axes of the others) as (its x channels split by head,
+    its B and C channels whole)."""
+    t = constrain(t, *lead, None)
+    di = cfg.ssm_inner
+    return constrain(t[..., :di], *lead, "ssm"), t[..., di:]
+
+
+def _body_args(cfg: ModelConfig, p):
+    """The body's small parameters laid out for it, and their axes:
+    the conv weight and bias split by channel block, the per-head
+    vectors cut to a rank's heads."""
+    w_x, w_bc = _conv_split(cfg, p["conv_w"], (None,))
+    b_x, b_bc = _conv_split(cfg, p["conv_b"], ())
+    return ((w_x, w_bc, b_x, b_bc, p["dt_bias"], p["A_log"], p["D"]),
+            ((None, "ssm"), (None, None), ("ssm",), (None,), ("ssm",),
+             ("ssm",), ("ssm",)))
+
+
+def _gated_norm(cfg: ModelConfig, y, norm):
+    """``rmsnorm`` over d_inner of the gated ``y`` [..., di] split by
+    head: each rank's mean square, weighted by its share of the width,
+    is a partial sum across the ranks (exactly the mean off a mesh: the
+    weight is 1), then each rank scales its columns."""
+    cols = ("batch",) + (None,) * (y.ndim - 2)
+    ms = shard_local(functools.partial(_mean_square, width=cfg.ssm_inner),
+                     (y,), ((*cols, "ssm"),), partial_of=(0, y.ndim - 1))
+    return shard_local(functools.partial(_scaled, eps=cfg.norm_eps),
+                       (y, ms, norm), ((*cols, "ssm"), (*cols, None),
+                                       ("ssm",)))
+
+
+def _mean_square(y, *, width: int):
+    share = y.shape[-1] / width
+    return torch.mean(torch.square(y.to(torch.float32)), dim=-1,
+                      keepdim=True) * share
+
+
+def _scaled(y, ms, scale, *, eps: float):
+    """As ``layers.rmsnorm`` given the mean square ``ms``."""
+    out = y.to(torch.float32) * torch.rsqrt(ms + eps)
+    return (out * scale.to(torch.float32)).to(y.dtype)
 
 
 def mamba(p, x, cfg: ModelConfig, deq=None, h0=None):
     """Full-sequence mixer.  x [B,S,d] -> (y [B,S,d], final state
     {"conv": the last K-1 pre-activation xBC rows, "ssd"}).
 
-    Between the two projections every step works on one batch row, so
-    on a mesh the body runs on each rank's rows (``shard_local``), the
-    SSD inner features whole: the conv's padding and the SSD scan's
-    chunk views have no DTensor rule that keeps them split."""
+    Between the two projections every step works on one batch row and
+    one head (the causal conv on its channels, the SSD scan, the gate;
+    B and C are shared by all heads), so on a mesh the body runs on
+    each rank's rows and heads (``shard_local``), as the reference
+    anchors them; the gated norm then sums across the heads' ranks, and
+    ``out_proj`` contracts the split width to a partial sum."""
     get = weight_getter(p, deq)
     zxbcdt = constrain(x @ get("in_proj").to(x.dtype),
                        "batch", None, "ssm")
+    z, xs, bc, dt = _blocks(cfg, zxbcdt)
+    small, small_axes = _body_args(cfg, p)
+    rows = ("batch", None, "ssm")
     extra = () if h0 is None else (h0["ssd"],)
-    y, conv_state, h_final = shard_local(
+    y, conv_x, conv_bc, h_final = shard_local(
         functools.partial(_mix, cfg=cfg, dtype=x.dtype),
-        (zxbcdt,) + tuple(p[n] for n in _BODY) + extra,
-        (("batch", None, None),) + _BODY_AXES
-        + (("batch", None, None, None),) * len(extra), out_like=(0, 0, 0))
-    return y @ get("out_proj").to(x.dtype), {"conv": conv_state,
-                                             "ssd": h_final}
+        (z, xs, bc, dt) + small + extra,
+        (rows, rows, ("batch", None, None), rows) + small_axes
+        + (("batch", "ssm", None, None),) * len(extra),
+        out_like=(0, 1, 2, (3, (0, 2, None, None))))
+    y = _gated_norm(cfg, y, p["norm"])
+    conv = torch.cat([constrain(conv_x, "batch", None, None), conv_bc], -1)
+    return y @ get("out_proj").to(x.dtype), {"conv": conv, "ssd": h_final}
 
 
-def _mix(zxbcdt, conv_w, conv_b, dt_bias, A_log, D, norm, ssd0=None, *,
-         cfg: ModelConfig, dtype):
-    """The mixer between its projections: (gated, normed y [B,S,di],
-    conv state, final SSD state)."""
-    B, S, _ = zxbcdt.shape
-    z, xBC_pre, dt = _split_proj(cfg, zxbcdt)
-    xBC = F.silu(_causal_conv(xBC_pre, conv_w.to(dtype), conv_b.to(dtype)))
+def _mix(z, x, bc, dt, w_x, w_bc, b_x, b_bc, dt_bias, A_log, D, ssd0=None,
+         *, cfg: ModelConfig, dtype):
+    """The mixer between its projections on a rank's heads: (gated y
+    [B,S,di], the conv state of the x and of the B/C channels, final
+    SSD state)."""
+    B, S, di = x.shape
+    xBC_pre = torch.cat([x, bc], -1)
+    w = torch.cat([w_x, w_bc], -1).to(dtype)
+    xBC = F.silu(_causal_conv(xBC_pre, w, torch.cat([b_x, b_bc]).to(dtype)))
     xs, dA, Bm, Cm, dt_sp = _ssd_inputs(cfg, dt_bias, A_log, xBC, dt)
     y, h_final = ssd_chunked(xs * dt_sp[..., None], dA, Bm, Cm,
                              cfg.ssm_chunk, ssd0)
     y = y + D.to(torch.float32)[None, None, :, None] * xs
-    y = y.reshape(B, S, cfg.ssm_inner).to(dtype)
+    y = y.reshape(B, S, di).to(dtype)
     y = y * F.silu(z)
-    y = rmsnorm({"scale": norm}, y, cfg.norm_eps)
     # The decode conv window needs the last K-1 PRE-activation xBC rows,
     # left-padded with zeros when the prompt is shorter.
     K = cfg.ssm_conv
-    conv_state = (xBC_pre[:, S - (K - 1):, :] if S >= K - 1 else
-                  F.pad(xBC_pre, (0, 0, K - 1 - S, 0)))
-    return y, conv_state, h_final
+    conv = (xBC_pre[:, S - (K - 1):, :] if S >= K - 1 else
+            F.pad(xBC_pre, (0, 0, K - 1 - S, 0)))
+    return y, conv[..., :di], conv[..., di:], h_final
 
 
 def mamba_decode(p, x, cfg: ModelConfig, state, deq=None):
@@ -211,30 +272,40 @@ def mamba_decode(p, x, cfg: ModelConfig, state, deq=None):
 
     The window ``[conv state | new row]`` takes the wider of the state's
     and the activations' dtypes, as the reference's promotion does.  On
-    a mesh the step runs on each rank's rows, as :func:`mamba`'s body."""
+    a mesh the step runs on each rank's rows and heads, as
+    :func:`mamba`'s body: the SSD state stays split by head from the
+    cache through the step and back."""
     get = weight_getter(p, deq)
     zxbcdt = x[:, 0, :] @ get("in_proj").to(x.dtype)       # [B, d_in]
-    y, conv, h = shard_local(
+    z, xs, bc, dt = _blocks(cfg, zxbcdt)
+    conv_x, conv_bc = _conv_split(cfg, state["conv"], ("batch", None))
+    small, small_axes = _body_args(cfg, p)
+    rows = ("batch", "ssm")
+    y, conv_x, conv_bc, h = shard_local(
         functools.partial(_step, cfg=cfg, dtype=x.dtype),
-        (zxbcdt, state["conv"], state["ssd"])
-        + tuple(p[n] for n in _BODY),
-        (("batch", None), ("batch", None, None),
-         ("batch", None, None, None)) + _BODY_AXES, out_like=(0, 1, 2))
+        (z, xs, bc, dt, conv_x, conv_bc, state["ssd"]) + small,
+        (rows, rows, ("batch", None), rows, ("batch", None, "ssm"),
+         ("batch", None, None), ("batch", "ssm", None, None)) + small_axes,
+        out_like=(0, 4, 5, 6))
+    y = _gated_norm(cfg, y, p["norm"])
+    conv = torch.cat([constrain(conv_x, "batch", None, None), conv_bc], -1)
     return (y @ get("out_proj").to(x.dtype))[:, None, :], {"conv": conv,
                                                           "ssd": h}
 
 
-def _step(zxbcdt, conv, ssd, conv_w, conv_b, dt_bias, A_log, D, norm, *,
-          cfg: ModelConfig, dtype):
-    """The recurrent step between the projections: (y [B,di], the new
-    conv window, the new SSD state)."""
-    B = zxbcdt.shape[0]
-    z, xBC_new, dt = _split_proj(cfg, zxbcdt)
+def _step(z, x, bc, dt, conv_x, conv_bc, ssd, w_x, w_bc, b_x, b_bc,
+          dt_bias, A_log, D, *, cfg: ModelConfig, dtype):
+    """The recurrent step between the projections on a rank's heads:
+    (gated y [B,di], the new conv window of the x and of the B/C
+    channels, the new SSD state)."""
+    B, di = x.shape
+    conv = torch.cat([conv_x, conv_bc], -1)
+    xBC_new = torch.cat([x, bc], -1)
     wdt = torch.promote_types(conv.dtype, dtype)
     window = torch.cat([conv.to(wdt), xBC_new[:, None, :].to(wdt)], dim=1)
-    w = conv_w.to(dtype).to(wdt)                           # [K, D]
+    w = torch.cat([w_x, w_bc], -1).to(dtype).to(wdt)       # [K, D]
     xBC = (torch.einsum("bkd,kd->bd", window, w)
-           + conv_b.to(dtype).to(wdt))
+           + torch.cat([b_x, b_bc]).to(dtype).to(wdt))
     xBC = F.silu(xBC)
 
     xs, dA, Bm, Cm, dt_sp = _ssd_inputs(cfg, dt_bias, A_log, xBC,
@@ -244,10 +315,9 @@ def _step(zxbcdt, conv, ssd, conv_w, conv_b, dt_bias, A_log, D, norm, *,
     h = ssd * dec[:, :, None, None] + inj
     y = torch.einsum("bn,bhpn->bhp", Cm, h)
     y = y + D.to(torch.float32)[None, :, None] * xs
-    y = y.reshape(B, cfg.ssm_inner).to(dtype)
+    y = y.reshape(B, di).to(dtype)
     y = y * F.silu(z)
-    y = rmsnorm({"scale": norm}, y, cfg.norm_eps)
-    return y, window[:, 1:, :], h
+    return y, window[:, 1:, :di], window[:, 1:, di:], h
 
 
 def ssd_reference(xdt, dA, Bm, Cm, h0=None):

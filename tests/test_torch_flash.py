@@ -266,8 +266,10 @@ def test_lm_loss_over_two_blocks_matches_reference(jax_runs):
 def test_dryrun_flops_equal_analytic_with_flash():
     """On a one-rank mesh the dry run's counted matmul FLOPs of a smoke
     twin equal ``dense_train_flops`` at two 512 blocks; the attention
-    operators' share (forward, remat's recompute and backward) is
-    counted as float32, whatever the compute type."""
+    operators (forward, remat's recompute and backward) on the twin's
+    bf16 activations are priced as bf16, over the half-products their
+    tensor-core kernels need: twice the forward's FLOPs, 11/4 of the
+    backward's."""
     if dist.is_initialized():
         dist.destroy_process_group()
     fake_world(1)
@@ -281,11 +283,16 @@ def test_dryrun_flops_equal_analytic_with_flash():
                          mesh=mesh)
         want = tdry.dense_train_flops(cfg, 2, LM_S)
         assert rec["cost"]["flops"] == sum(want.values())
-        # float32 products: the attention's four passes and the logits
-        # head (float32 operands, 6 T d V).
+        # float32 products: the logits head (float32 operands, 6 T d V);
+        # bf16: the projections and the attention, whose formula counts
+        # one forward pass (attn) twice with remat and the backward as 2
+        # attn: 2 * 2 attn + 11 / 4 * 2 attn in half-products.
         head = 6 * 2 * LM_S * cfg.d_model * cfg.vocab_padded
-        assert rec["cost"]["flops_by_dtype"]["float32"] == \
-            4 * want["attention"] // 3 + head
+        attn = want["attention"] // 3
+        by = rec["cost"]["flops_by_dtype"]
+        assert by["float32"] == head
+        assert by["bfloat16"] == sum(want.values()) - head - 4 * attn \
+            + 2 * 2 * attn + 11 / 4 * 2 * attn
     finally:
         dist.destroy_process_group()
 
