@@ -25,7 +25,8 @@ def _rand(rng, shape, scale=1.0):
 @pytest.mark.parametrize("fmt,extended,rounding", [
     (FPFormat(5, 2), False, RNE),      # hobflops8
     (FPFormat(5, 3), False, RNE),      # hobflops9
-    (FPFormat(5, 3), True, RNE),       # hobflops9e
+    pytest.param(FPFormat(5, 3), True, RNE,     # hobflops9e
+                 marks=pytest.mark.slow),
     (FPFormat(4, 3), False, RNE),      # ieee8
     (FPFormat(5, 3), False, RTZ),
 ])
@@ -126,6 +127,7 @@ def test_hobflops_conv2d(relu):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.slow
 def test_bitslice_mac_c_unroll_chain():
     """Chained-channel kernel (c_unroll > 1) stays bit-exact, including
     when c_unroll does not divide C (clamping / padding paths)."""

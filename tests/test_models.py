@@ -111,12 +111,26 @@ def test_mamba_decode_matches_full():
 # ---------------------------------------------------------------------------
 # Per-arch smoke: forward + loss finite, gradients flow
 # ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def arch_params():
+    """``init_params(schema, KEY)`` once per arch for both per-arch
+    tests: their configurations differ in compute dtype and capacity,
+    which leave the schema, and so the parameters, as they are."""
+    built = {}
+
+    def params(arch, schema):
+        if arch not in built or built[arch][0] != schema:
+            built[arch] = (schema, init_params(schema, KEY))
+        return built[arch][1]
+    return params
+
+
 @pytest.mark.parametrize("arch", ARCH_NAMES)
-def test_arch_smoke_train_step(arch):
+def test_arch_smoke_train_step(arch, arch_params):
     cfg = smoke_config(arch)
     schema = model_schema(cfg)
     assert param_count(schema) > 0
-    params = init_params(schema, KEY)
+    params = arch_params(arch, schema)
     batch = make_batch(cfg, 2, 64)
     (loss, metrics), grads = jax.value_and_grad(
         lambda p: lm_loss(p, batch, cfg), has_aux=True)(params)
@@ -126,7 +140,7 @@ def test_arch_smoke_train_step(arch):
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
-def test_arch_prefill_decode_consistency(arch):
+def test_arch_prefill_decode_consistency(arch, arch_params):
     """decode(prefill(S-1)) logits == full-forward logits at position S-1.
 
     f32 compute isolates *path* equivalence from bf16 noise; the MoE
@@ -135,7 +149,7 @@ def test_arch_prefill_decode_consistency(arch):
     cfg = dataclasses.replace(smoke_config(arch),
                               compute_dtype="float32",
                               moe_capacity_factor=8.0)
-    params = init_params(model_schema(cfg), KEY)
+    params = arch_params(arch, model_schema(cfg))
     B, S = 2, 32
     batch = make_batch(cfg, B, S, train=False)
     lg_full, _ = forward_logits(params, batch, cfg, mode="prefill")

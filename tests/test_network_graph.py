@@ -57,6 +57,7 @@ def _residual_pool_graph(rng, fmt_lo=F8, fmt_hi=F11, cin=4, width=8,
     return g
 
 
+@pytest.mark.slow
 def test_residual_pool_graph_bit_exact():
     """Tentpole acceptance: the branched, pooled, mixed-precision graph
     is bit-exact between the resident and f32-boundary oracle paths."""
@@ -264,6 +265,7 @@ def test_relu_activations_wrapper():
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.slow
 def test_graph_pallas_interpret_matches_jnp():
     """The graph runner with the Pallas conv backend (interpret mode on
     CPU) is bit-identical to the jnp backend."""

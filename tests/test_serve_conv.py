@@ -311,6 +311,7 @@ print("MULTIDEV-OK")
 """
 
 
+@pytest.mark.timeout(75)
 def test_sharded_wave_bit_exact_two_devices():
     """A real 2-device split of the wave batch (forced host devices in
     a subprocess: the in-process device set must stay 1) is bit-exact
@@ -321,7 +322,7 @@ def test_sharded_wave_bit_exact_two_devices():
          env.get("PYTHONPATH", "")])
     out = subprocess.run([sys.executable, "-c", _MULTIDEV_SCRIPT],
                          capture_output=True, text=True, env=env,
-                         timeout=600)
+                         timeout=60)
     assert out.returncode == 0, out.stderr
     assert "MULTIDEV-OK" in out.stdout
 

@@ -126,6 +126,7 @@ def test_bounded_queue_sheds_with_typed_error(graphs):
         _assert_bit_exact(r, g)
 
 
+@pytest.mark.timeout(60)
 def test_wave_deadline_serves_lone_request(graphs):
     """Satellite acceptance: with wave_deadline_ms, a lone queued
     request is served once the deadline lapses instead of waiting
@@ -150,6 +151,7 @@ def test_wave_deadline_serves_lone_request(graphs):
     assert req.e2e_latency_s >= 0.055
 
 
+@pytest.mark.timeout(60)
 def test_wave_deadline_full_bucket_closes_immediately(graphs):
     """The other edge of deadline-or-full: a full wave never waits for
     the deadline."""
@@ -166,6 +168,7 @@ def test_wave_deadline_full_bucket_closes_immediately(graphs):
         _assert_bit_exact(r, g)
 
 
+@pytest.mark.timeout(60)
 def test_per_request_deadline_expires_stale_requests(graphs):
     g, _ = graphs
     rng = np.random.default_rng(5)
@@ -339,6 +342,7 @@ def test_corrupted_tune_cache_warns_ignores_rebuilds(tmp_path):
 # ---------------------------------------------------------------------------
 # Precision-degrading overload control
 # ---------------------------------------------------------------------------
+@pytest.mark.timeout(150)
 def test_overload_degrades_tags_and_recovers(graphs):
     """Sustained queue pressure routes waves to the registered
     cheaper-precision variant; every degraded response is tagged and

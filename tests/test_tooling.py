@@ -32,11 +32,13 @@ def test_bench_json_writer(tmp_path):
 
 def test_network_bench_smoke():
     """Tier-1 smoke of the multi-layer pipeline benchmark: a tiny
-    bitslice-resident stack runs, matches the per-layer roundtrip
-    bit-exactly, and yields the BENCH_network.json row layout."""
+    bitslice-resident stack (``smoke()``'s) runs and yields the
+    BENCH_network.json row layout.  Its bit-exactness against the
+    per-layer roundtrip is ``test_network.py``'s, the residual-pool
+    graph's ``test_network_graph.py``'s."""
     sys.path.insert(0, _ROOT)
-    from benchmarks.network import smoke
-    row = smoke()
+    from benchmarks.network import bench_network
+    row = bench_network("hobflops8", hw=6, c=8, depth=3, iters=1, reps=1)
     for key in ("resident_macs_per_s", "roundtrip_macs_per_s",
                 "speedup_vs_roundtrip", "macs"):
         assert key in row, row

@@ -475,9 +475,9 @@ def gloo_runs(tmp_path_factory):
         p.start()
 
     def result():
-        got = dict(q.get(timeout=300) for _ in procs)
+        got = dict(q.get(timeout=100) for _ in procs)
         for p in procs:
-            p.join(timeout=60)
+            p.join(timeout=15)
             assert not p.is_alive() and p.exitcode == 0
         return got, device, ckpt
     yield result
@@ -644,15 +644,17 @@ def test_dryrun_train_flops_equal_analytic_on_one_rank():
 # ---------------------------------------------------------------------------
 # (h) the conv quickstart, and the package boundary
 # ---------------------------------------------------------------------------
+@pytest.mark.timeout(45)
 def test_quickstart_runs_on_cpu():
     out = subprocess.run(
         [sys.executable, "examples/quickstart_torch.py", "--device", "cpu"],
-        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        cwd=ROOT, capture_output=True, text=True, timeout=40,
         env={**os.environ, "PYTHONPATH": str(SRC)})
     assert out.returncode == 0, out.stderr
     assert "bit-exact vs oracle : True" in out.stdout
 
 
+@pytest.mark.timeout(45)
 def test_distribution_imports_load_no_jax():
     code = (
         "import sys\n"
@@ -663,13 +665,14 @@ def test_distribution_imports_load_no_jax():
         "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=300,
+                         text=True, timeout=40,
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
 
 
 # The ranks' results, read last: they ran while the tests above did.
+@pytest.mark.timeout(120)
 def test_two_rank_gloo_group(gloo_runs):
     got, device, ckpt = gloo_runs()
     xs = [_psum_input(r) for r in range(2)]

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from conftest import THREADS
 
 from repro.configs import smoke_config as jsmoke_config
 from repro.data import pipeline as jpipeline
@@ -123,7 +124,7 @@ def _jax_lm():
 def jax_runs():
     jobs = [("flash", c) for c in CASES] + [("lm", None)]
     run = lambda job: _jax_flash(job[1]) if job[0] == "flash" else _jax_lm()
-    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+    with ThreadPoolExecutor(min(len(jobs), THREADS)) as pool:
         return dict(zip(jobs, pool.map(run, jobs)))
 
 

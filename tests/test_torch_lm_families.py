@@ -41,6 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from conftest import THREADS
 
 from repro.configs import ARCH_IDS as JARCH_IDS
 from repro.configs import get_config as jget_config
@@ -166,9 +167,9 @@ def _jax_run(arch, quant):
 
 @pytest.fixture(scope="module")
 def jax_runs():
-    """The reference's runs, in threads: XLA compiles outside the
-    interpreter lock, and compiling is most of their time."""
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    """The reference's runs, in the worker's threads: XLA compiles
+    outside the interpreter lock, and compiling is most of their time."""
+    with ThreadPoolExecutor(min(4, THREADS)) as pool:
         runs = list(pool.map(lambda case: _jax_run(*case), CASES))
     return dict(zip(CASES, runs))
 

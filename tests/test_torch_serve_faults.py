@@ -154,6 +154,7 @@ def test_bounded_queue_sheds_with_typed_error(graphs, pool):
         _assert_bit_exact(r, g)
 
 
+@pytest.mark.timeout(30)
 @pytest.mark.parametrize("case", ["lone request at its deadline",
                                   "full bucket at once"])
 def test_wave_closes_on_deadline_or_full(graphs, pool, case):
@@ -187,6 +188,7 @@ def test_wave_closes_on_deadline_or_full(graphs, pool, case):
             _assert_bit_exact(r, g)
 
 
+@pytest.mark.timeout(30)
 def test_per_request_deadline_expires_stale_requests(graphs, pool):
     g, _ = graphs
     clock = FakeClock()
@@ -382,6 +384,7 @@ def test_corrupted_tune_cache_warns_ignores_rebuilds(tmp_path):
 # ---------------------------------------------------------------------------
 # Precision-degrading overload control
 # ---------------------------------------------------------------------------
+@pytest.mark.timeout(40)
 def test_overload_degrades_tags_and_recovers(graphs, pool):
     """Sustained queue pressure routes waves to the registered
     cheaper-precision variant; every degraded response is tagged and

@@ -173,9 +173,9 @@ def start_ranks(store, seed=0):
 
     def result():
         if not got:
-            got.update(q.get(timeout=300) for _ in procs)
+            got.update(q.get(timeout=80) for _ in procs)
             for p in procs:
-                p.join(timeout=60)
+                p.join(timeout=15)
                 assert not p.is_alive() and p.exitcode == 0
         return got
     return result, procs
@@ -322,6 +322,7 @@ def test_dryrun_mixer_work_falls_with_model(fake_four, arch, kind):
 # ---------------------------------------------------------------------------
 # The (data=1, model=2) gloo group against the one-card runs
 # ---------------------------------------------------------------------------
+@pytest.mark.timeout(100)
 @pytest.mark.parametrize("arch", TWINS)
 def test_body_sees_half_the_heads(heads_runs, arch):
     """Each rank's SSD body sees H/2 heads and di/2 + 2N conv channels,
@@ -334,6 +335,7 @@ def test_body_sees_half_the_heads(heads_runs, arch):
             (cfg.ssm_heads // 2, cfg.ssm_inner // 2 + 2 * cfg.ssm_state)]
 
 
+@pytest.mark.timeout(100)
 @pytest.mark.parametrize("arch", TWINS)
 def test_two_train_steps_match_one_card(heads_runs, one_card, arch):
     from repro_torch.optim.adamw import lr_at
@@ -355,6 +357,7 @@ def test_two_train_steps_match_one_card(heads_runs, one_card, arch):
                     err_msg=f"{arch} {k}")
 
 
+@pytest.mark.timeout(100)
 @pytest.mark.parametrize("arch", TWINS)
 def test_prefill_and_decode_match_one_card(heads_runs, one_card, arch):
     got = heads_runs()

@@ -43,6 +43,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from conftest import THREADS
 
 from repro.checkpoint import restore_checkpoint as jrestore_checkpoint
 from repro.checkpoint import save_checkpoint as jsave_checkpoint
@@ -136,11 +137,11 @@ def _jax_step(n_micro):
 
 @pytest.fixture(scope="module")
 def jax_runs():
-    """The reference's compiled runs, in threads."""
+    """The reference's compiled runs, in the worker's threads."""
     jobs = [("grads", a) for a in ARCHS] + [("step", n) for n in (1, 2)]
     run = lambda job: (_jax_grads if job[0] == "grads" else _jax_step)(
         job[1])
-    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+    with ThreadPoolExecutor(min(len(jobs), THREADS)) as pool:
         return dict(zip(jobs, pool.map(run, jobs)))
 
 
